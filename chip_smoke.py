@@ -1,0 +1,608 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed as it ends; any fault raises and the script exits
+nonzero (there is no CPU fall-back):
+
+1. device: the card's name and power limit;
+2. build: the CUDA kernels compiled from ``src/repro_torch/kernels/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at a large shape, with CUDA-event times, the
+   plain version's time and the card's lower bound for the same work;
+4. train: edge_vision at full size in both modes and iot at full size,
+   enhanced, all on the card, publishing into one registry; each run is
+   then repeated on the CPU in lockstep, handed the card's stump at every
+   fit: the CPU's own pick on the card's inputs must be that stump (or tie
+   it to within rounding), and every counter must agree; a run of the CPU
+   on its own is set beside the card's, and where the two first pick
+   apart is printed;
+5. serve: 2048 requests (25% repeats) from both tenants' test sets through
+   ``EnsembleServer``, one tenant on the fused fingerprint path, then the
+   same batches again through the CPU plain path;
+6. profile: one more training run and serve under torch.profiler, for the
+   card's busy time by kernel.
+
+Launch counts are zeroed just before phase 4 and read just after phase 5.
+The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+F64_OPS_PER_S = 34e12           # H100 SXM f64 outside the tensor cores
+TOL = 1e-5                      # kernel vs plain: summation order only
+ROUNDING = 1e-6                 # two stumps' exact errors this close tie
+
+
+def close(got, want, l1=None) -> bool:
+    """Within rtol/atol 1e-5 (the f32 sums differ in order only).  With
+    ``l1`` (the sum of the summed terms' magnitudes) the absolute slack is
+    1e-5 of it instead: a long sum that cancels to near zero carries the
+    rounding of its partial sums, which no order avoids."""
+    if l1 is None:
+        return bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
+    return bool(((got - want).abs() <= TOL * (1.0 + l1)).all())
+
+KERNEL_INFO = {
+    "stump_scan": ("src/repro_torch/kernels/csrc/stump_scan.cu",
+                   "src/repro/kernels/stump_scan.py:41"),
+    "stump_vote_batched": ("src/repro_torch/kernels/csrc/stump_vote.cu",
+                           "src/repro/kernels/ensemble_vote.py:203"),
+    "stump_vote_fp_batched": ("src/repro_torch/kernels/csrc/stump_vote.cu",
+                              "src/repro/kernels/ensemble_vote.py:168"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed calls,
+    after two warm-up calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int, name_has: str) -> float:
+    """Mean device time (ms) of the CUDA kernels whose name contains
+    ``name_has``, over ``reps`` calls traced by torch.profiler: the kernel
+    alone, without the host time around its launch.  NaN when the trace
+    holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = n = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and \
+                name_has in evt.name:
+            total += evt.device_time_total
+            n += 1
+    return total / n / 1e3 if n else float("nan")
+
+
+def bound_ms(nbytes: float, ops_f32: float, ops_f64: float = 0.0):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops_f32 / F32_OPS_PER_S + ops_f64 / F64_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------ phase 3
+def scan_inputs(gen, N, F, T):
+    dev = "cuda"
+    x = torch.randn((N, F), generator=gen, device=dev)
+    y = torch.where(torch.rand((N,), generator=gen, device=dev) < 0.5,
+                    1.0, -1.0)
+    w = torch.rand((N,), generator=gen, device=dev)
+    w = w / w.sum()
+    # thresholds placed exactly on data values: the strict `>` edge
+    rows = torch.randint(0, N, (F, T), generator=gen, device=dev)
+    thr = x.T.gather(1, rows).contiguous()
+    return x, y, w, thr
+
+
+def vote_inputs(gen, B, T, N, pad_t):
+    dev = "cuda"
+    xsel = torch.randn((B, T, N), generator=gen, device=dev)
+    thr = torch.randn((B, T), generator=gen, device=dev)
+    # some features exactly on their threshold: sign(0 + 1e-12) edge
+    xsel[:, ::7, ::5] = thr[:, ::7, None]
+    pol = torch.where(torch.rand((B, T), generator=gen, device=dev) < 0.5,
+                      1.0, -1.0)
+    alphas = torch.rand((B, T), generator=gen, device=dev)
+    alphas[:, T - pad_t:] = 0.0                  # the batch's T padding
+    return xsel, thr, pol, alphas
+
+
+def check_kernels():
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for label, (N, F, T) in (("main", (333, 64, 16)),
+                             ("large", (24000, 64, 16))):
+        x, y, w, thr = scan_inputs(gen, N, F, T)
+        got = ops.stump_scan(x, y, w, thr)
+        want = ref.stump_scan_ref(x, y, w, thr)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not close(got, want):
+            raise AssertionError(f"stump_scan {label}: max err {err}")
+        nbytes = 4 * (N * F + 2 * N + F * T) + 4 * F * T
+        # two f32 compares per (n, f, t), one f64 add per miss
+        misses = int(((x[:, :, None] > thr[None]) != (y > 0)[:, None, None])
+                     .sum())
+        b, by = bound_ms(nbytes, 2.0 * N * F * T, misses)
+        results.setdefault("stump_scan", {})[label] = dict(
+            shape=[N, F, T], max_abs_err=err,
+            ms=cuda_ms(lambda: ops.stump_scan(x, y, w, thr), 50),
+            kernel_ms=device_ms(lambda: ops.stump_scan(x, y, w, thr), 20,
+                                "stump_scan_kernel"),
+            plain_ms=cuda_ms(lambda: ref.stump_scan_ref(x, y, w, thr), 10),
+            bound_ms=b, bound_by=by, library_ms=None)
+    for label, (B, T, N, pad) in (("main", (2, 300, 64, 20)),
+                                  ("large", (8, 1024, 4096, 24))):
+        xsel, thr, pol, alf = vote_inputs(gen, B, T, N, pad)
+        got = ops.stump_vote_batched(xsel, thr, pol, alf)
+        want = ref.stump_vote_batched_ref(xsel, thr, pol, alf)
+        gm, g0, g1 = ops.stump_vote_fp_batched(xsel, thr, pol, alf)
+        wm, w0, w1 = ref.stump_vote_fp_batched_ref(xsel, thr, pol, alf)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_fp = float((gm - wm).abs().max())
+        l1 = None if label == "main" else alf.abs().sum(1, keepdim=True)
+        if not (close(got, want, l1) and close(gm, wm, l1)):
+            raise AssertionError(f"votes {label}: max err {err} {err_fp}")
+        if not (torch.equal(g0, w0) and torch.equal(g1, w1)):
+            raise AssertionError(f"fingerprint lanes {label} not bit-equal")
+        vote_bytes = 4 * B * T * N + 3 * 4 * B * T + 4 * B * N
+        ops_vote = 6.0 * B * T * N               # sub, add, sign (2), 2 mul
+        b, by = bound_ms(vote_bytes, ops_vote)
+        results.setdefault("stump_vote_batched", {})[label] = dict(
+            shape=[B, T, N], max_abs_err=err,
+            ms=cuda_ms(lambda: ops.stump_vote_batched(xsel, thr, pol, alf),
+                       50),
+            kernel_ms=device_ms(
+                lambda: ops.stump_vote_batched(xsel, thr, pol, alf), 20,
+                "stump_vote_kernel<false>"),
+            plain_ms=cuda_ms(
+                lambda: ref.stump_vote_batched_ref(xsel, thr, pol, alf), 10),
+            bound_ms=b, bound_by=by, library_ms=None)
+        # + two uint32 lanes: xor, mul, xor each (32-bit integer ops)
+        b, by = bound_ms(vote_bytes + 2 * 4 * B * N,
+                         ops_vote + 6.0 * B * T * N)
+        results.setdefault("stump_vote_fp_batched", {})[label] = dict(
+            shape=[B, T, N], max_abs_err=err_fp, lanes_bit_equal=True,
+            ms=cuda_ms(
+                lambda: ops.stump_vote_fp_batched(xsel, thr, pol, alf), 50),
+            kernel_ms=device_ms(
+                lambda: ops.stump_vote_fp_batched(xsel, thr, pol, alf), 20,
+                "stump_vote_kernel<true>"),
+            plain_ms=cuda_ms(
+                lambda: ref.stump_vote_fp_batched_ref(xsel, thr, pol, alf),
+                3),
+            bound_ms=b, bound_by=by, library_ms=None)
+    for name, by_shape in results.items():
+        for label, r in by_shape.items():
+            log(f"kernel {name} {label} {r['shape']}: "
+                f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
+                f"kernel_ms={r['kernel_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                f"({r['bound_by']})")
+    return results
+
+
+# ------------------------------------------------------------ phase 4
+def _key(p):
+    return (int(p["feature"]), float(p["threshold"]), float(p["polarity"]))
+
+
+def _exact_err(x, y, w, thr, key):
+    """Stump ``key``'s weighted error on these inputs, summed in f64."""
+    x, y, w, thr = (a.double().numpy() for a in (x, y, w, thr))
+    miss = np.where(x[:, :, None] > thr[None], 1.0, -1.0) != y[:, None, None]
+    err = np.einsum("n,nft->ft", w, miss)
+    f, th, pol = key
+    t = int(np.nonzero(thr[f] == th)[0][0])
+    return err[f, t] if pol > 0 else 1.0 - err[f, t]
+
+
+class FitLog:
+    """The port's own stump learner, keeping each fit's inputs and pick
+    where they lie (no copy to the host while the run goes on)."""
+
+    def __init__(self):
+        from repro_torch.models.weak import WeakLearnerSpec, get_weak_learner
+        self.base = get_weak_learner("stump")
+        self.fits = []
+        self.spec = WeakLearnerSpec("stump", self.fit, self.base.predict,
+                                    self.base.param_bytes)
+
+    def fit(self, x, y, w, generator=None):
+        p = self.base.fit(x, y, w, generator)
+        self.fits.append((x, y, w.clone(), p))
+        return p
+
+    def on_cpu(self):
+        shards = {}                      # one host copy per client shard
+        host = lambda t: shards.setdefault(t.data_ptr(), t.cpu())
+        return [(host(x), host(y), w.cpu(), {k: v.cpu() for k, v in p.items()})
+                for x, y, w, p in self.fits]
+
+
+def lockstep_on_cpu(cfg, data, mode, fits, label):
+    """The same run on the CPU, handed the card's stump at every fit.
+
+    Each fit's inputs must be the card's (x and y equal, the distribution
+    within 1e-4 relative: the card's exp and log differ from the CPU's in
+    the last bits), and the CPU's own pick on the card's inputs must be
+    the card's stump or tie it to within ``ROUNDING`` in exact arithmetic:
+    that holds ``stump_scan`` to its plain version at every fit of the
+    main path.  Returns the run's metrics and the number of ties."""
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.models.weak import WeakLearnerSpec, get_weak_learner
+    from repro_torch.models.weak import stump_thresholds
+    base = get_weak_learner("stump")
+    replay = iter(enumerate(fits))
+    ties = []
+
+    def fit(x, y, w, generator=None):
+        i, (gx, gy, gw, gp) = next(replay)
+        if not (torch.equal(x, gx) and torch.equal(y, gy)):
+            raise AssertionError(f"{label}: fit #{i} is on another client "
+                                 f"shard than the card's")
+        if not torch.allclose(w, gw, rtol=1e-4, atol=1e-9):
+            raise AssertionError(f"{label}: distribution at fit #{i} differs "
+                                 f"by {float((w - gw).abs().max())}")
+        mine = base.fit(gx, gy, gw)
+        if _key(mine) != _key(gp):
+            thr = stump_thresholds(gx)
+            gap = (_exact_err(gx, gy, gw, thr, _key(gp))
+                   - _exact_err(gx, gy, gw, thr, _key(mine)))
+            if abs(gap) > ROUNDING:
+                raise AssertionError(f"{label}: fit #{i} card {_key(gp)} vs "
+                                     f"cpu {_key(mine)}, exact gap {gap}")
+            ties.append(i)
+        return gp
+    spec = WeakLearnerSpec("stump", fit, base.predict, base.param_bytes)
+    m = FederatedBoostEngine(cfg, data, mode, weak=spec, device="cpu").run()
+    if next(replay, None) is not None:
+        raise AssertionError(f"{label}: the cpu run made fewer fits")
+    return m, len(ties)
+
+
+def first_split(cfg, data, mode, card_fits):
+    """The CPU's own run beside the card's: None where every pick agrees,
+    else (fit index, exact gap between the card's and the CPU's pick on
+    the card's inputs, the largest relative difference of the two
+    distributions there).  Both sum stump errors in f64, so the runs split
+    only where the devices' exp and log, moving the distribution in its
+    last bits, turn a near-tie."""
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.models.weak import stump_thresholds
+    cpu = FitLog()
+    FederatedBoostEngine(cfg, data, mode, weak=cpu.spec, device="cpu").run()
+    for i, ((gx, gy, gw, gp), (cx, _, cw, cp)) in enumerate(
+            zip(card_fits, cpu.fits)):
+        if _key(gp) != _key(cp) or not torch.equal(gx, cx):
+            thr = stump_thresholds(gx)
+            gap = (_exact_err(gx, gy, gw, thr, _key(gp))
+                   - _exact_err(gx, gy, gw, thr, _key(cp)))
+            rel = float(((gw - cw).abs() / gw.clamp_min(1e-30)).max()
+                        if gx.shape == cx.shape else float("nan"))
+            return i, gap, rel
+    return None
+
+
+def train(registry):
+    from repro_torch import obs
+    from repro_torch.configs.paper_fedboost import FedBoostConfig
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.data import make_domain_data
+    from repro_torch.sim.scenarios import DOMAINS
+
+    runs = []
+    datas = {}
+    plan = [("edge_vision", "baseline", 25, "edge_vision_baseline"),
+            ("edge_vision", "enhanced", 25, "edge_vision"),
+            ("iot", "enhanced", 10, "iot")]
+    for domain, mode, rounds, tenant in plan:
+        dom = DOMAINS[domain]
+        data = datas.setdefault(domain, make_domain_data(dom, seed=0))
+        cfg = FedBoostConfig(
+            n_clients=dom.n_clients, n_rounds=rounds, seed=0,
+            straggler_factor=dom.straggler_factor,
+            dropout_prob=dom.dropout_prob, link_mbps=dom.link_mbps,
+            balanced_init=(domain == "iot"))
+        log_ = FitLog()
+        t0 = time.perf_counter()
+        eng = FederatedBoostEngine(cfg, data, mode, weak=log_.spec,
+                                   device="cuda")
+        if eng.device.type != "cuda" or eng.clients[0].x.device.type != "cuda":
+            raise AssertionError("engine data is not on the card")
+        eng.attach_registry(registry, tenant)
+        m = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append((domain, mode, cfg, m, log_))
+        log(f"train {domain} {mode} {rounds} rounds on cuda: "
+            f"bytes={m.total_bytes} msgs={m.n_messages} syncs={m.n_syncs} "
+            f"merged={m.learners_merged} published={m.snapshots_published} "
+            f"sim_time_s={m.sim_time_s!r} val_err={m.final_val_error:.4f} "
+            f"test_err={m.final_test_error:.4f} wall_s={wall:.2f}")
+        for v in (m.final_val_error, m.final_test_error, m.sim_time_s):
+            if not math.isfinite(v):
+                raise AssertionError(f"non-finite metric in {domain} {mode}")
+        if not m.final_val_error < 0.35:
+            raise AssertionError(f"{domain} {mode} did not learn")
+    fits = int(obs.get_registry().counter("train.fits").value)
+    if fits != sum(len(r[4].fits) for r in runs):
+        raise AssertionError(f"train.fits {fits} != fits logged")
+    # every run again on the CPU in lockstep with the card's picks: integer
+    # accounting and the event clock agree exactly, errors to one sample
+    keys = ("uplink_bytes", "downlink_bytes", "n_messages", "n_syncs",
+            "learners_merged", "rounds_unavailable", "sim_time_s")
+    for domain, mode, cfg, m_gpu, log_ in runs:
+        label = f"{domain} {mode}"
+        m_cpu, ties = lockstep_on_cpu(cfg, datas[domain], mode,
+                                      log_.on_cpu(), label)
+        diff = {k: (getattr(m_gpu, k), getattr(m_cpu, k)) for k in keys
+                if getattr(m_gpu, k) != getattr(m_cpu, k)}
+        if diff:
+            raise AssertionError(f"{label}: cuda vs cpu counters {diff}")
+        one = 1.0 / len(datas[domain]["test"][1]) + 1e-6
+        d_err = max(abs(m_gpu.final_test_error - m_cpu.final_test_error),
+                    abs(m_gpu.final_val_error - m_cpu.final_val_error))
+        log(f"train check {label}: cpu lockstep counters equal the card's; "
+            f"{len(log_.fits)} fits, cpu pick == card pick at "
+            f"{len(log_.fits) - ties} (rounding ties {ties}); test error "
+            f"cuda {m_gpu.final_test_error:.4f} cpu "
+            f"{m_cpu.final_test_error:.4f}")
+        if d_err > one:
+            raise AssertionError(f"{label}: cuda vs cpu errors differ by "
+                                 f"{d_err}")
+        split = first_split(cfg, datas[domain], mode, log_.on_cpu())
+        log(f"train check {label}: the cpu's own run "
+            + ("picks as the card's at every fit" if split is None else
+               f"splits from the card's at fit #{split[0]}: exact gap "
+               f"{split[1]:.3g} on the card's inputs, distributions "
+               f"{split[2]:.3g} apart (relative)"))
+    return datas, fits
+
+
+# ------------------------------------------------------------ phase 5
+def serve(registry, datas):
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.serve import (BatchConfig, BatchEvaluator,
+                                   EnsembleServer, ResultCache)
+
+    fused = KernelPolicy(fused_fingerprint=True)
+    policy_for = lambda tenant: fused if tenant == "iot" else None
+    registry.rebase_clock(0.0)
+    server = EnsembleServer(registry, BatchConfig(max_batch=64,
+                                                  cache_capacity=4096),
+                            policy_for=policy_for, device="cuda")
+    batches = []
+    evaluate = server.evaluator.evaluate
+
+    def recording(batch):
+        out = evaluate(batch)
+        batches.append((list(batch), out, server.evaluator.last_eval.fp_hits))
+        return out
+    server.evaluator.evaluate = recording
+
+    rng = np.random.RandomState(1)
+    tenants = ("edge_vision", "iot")
+    sent = []                                  # (tenant, row) per request
+    fresh = {t: 0 for t in tenants}
+    for _ in range(2048):
+        if sent and rng.rand() < 0.25:         # a repeat of an earlier one
+            sent.append(sent[rng.randint(len(sent))])
+            continue
+        t = tenants[rng.randint(2)]
+        sent.append((t, fresh[t] % len(datas[t]["test"][1])))
+        fresh[t] += 1
+    responses = []
+    t0 = time.perf_counter()
+    for tenant, row in sent:
+        x = datas[tenant]["test"][0][row]
+        accepted, done = server.submit(tenant, x,
+                                       now=time.perf_counter() - t0)
+        if not accepted:
+            raise AssertionError("request rejected")
+        responses += done
+    responses += server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(responses) != len(sent):
+        raise AssertionError(f"{len(responses)} responses for {len(sent)}")
+    correct = 0
+    for r in responses:
+        tenant, row = sent[r.rid]
+        if r.snapshot_version == 0 or not math.isfinite(r.margin):
+            raise AssertionError(f"bad response {r}")
+        correct += r.label == datas[tenant]["test"][1][row]
+    rep = server.metrics.report()
+    ev = server.evaluator
+    log(f"serve: {len(responses)} requests in {rep['n_batches']} batches, "
+        f"accuracy={correct / len(responses):.4f} p50_ms={rep['p50_ms']:.3f} "
+        f"p99_ms={rep['p99_ms']:.3f} wall_s={wall:.3f} "
+        f"evaluator_launches={ev.kernel_launches} "
+        f"host_hashes={ev.host_hash_calls} "
+        f"fp_hits={sum(h for _, _, h in batches)} "
+        f"cache_hits={server.cache.stats.hits}")
+    # the same batches through the CPU plain path, with a cache of its own
+    cpu = BatchEvaluator(registry, cache=ResultCache(4096),
+                         policy_for=policy_for, device="cpu")
+    mismatch = worst = far = 0
+    fp_hits = cpu_fp_hits = 0
+    for batch, out, hits in batches:
+        want = cpu.evaluate(batch)
+        fp_hits += hits
+        cpu_fp_hits += cpu.last_eval.fp_hits
+        for g, c in zip(out, want):
+            worst = max(worst, abs(g.margin - c.margin))
+            far += abs(g.margin - c.margin) > TOL + TOL * abs(c.margin)
+            if abs(c.margin) > 1e-5 and g.label != c.label:
+                mismatch += 1
+    log(f"serve check: cpu plain path on the same {len(batches)} batches: "
+        f"label mismatches={int(mismatch)} max |margin diff|={worst:.3g} "
+        f"cpu fp_hits={cpu_fp_hits}")
+    if mismatch:
+        raise AssertionError(f"{int(mismatch)} labels differ from the cpu")
+    if far:
+        raise AssertionError(f"{far} margins differ from the cpu beyond "
+                             f"rtol/atol {TOL} (max {worst})")
+    if fp_hits != cpu_fp_hits or fp_hits <= 0:
+        raise AssertionError(f"fp_hits cuda {fp_hits} cpu {cpu_fp_hits}")
+
+
+# ------------------------------------------------------------ phase 6
+def profile_main_path(registry, datas):
+    """One more edge_vision enhanced training run and a 512-request serve,
+    traced by torch.profiler (CUDA activity only): device time by kernel
+    name and the share of the wall time the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.paper_fedboost import FedBoostConfig
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.serve import BatchConfig, EnsembleServer
+    from repro_torch.sim.scenarios import DOMAINS
+
+    dom = DOMAINS["edge_vision"]
+    cfg = FedBoostConfig(n_clients=dom.n_clients, n_rounds=25, seed=0,
+                         straggler_factor=dom.straggler_factor,
+                         dropout_prob=dom.dropout_prob,
+                         link_mbps=dom.link_mbps)
+    server = EnsembleServer(registry, BatchConfig(max_batch=64),
+                            device="cuda")
+    xt = datas["edge_vision"]["test"][0]
+    phases = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        FederatedBoostEngine(cfg, datas["edge_vision"], "enhanced",
+                             device="cuda").run()
+        torch.cuda.synchronize()
+        phases["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(512):
+            server.submit("edge_vision", xt[i % len(xt)],
+                          now=time.perf_counter() - t0)
+        server.drain()
+        torch.cuda.synchronize()
+        phases["serve"] = time.perf_counter() - t0
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            key = evt.name.replace("(anonymous namespace)::", "")
+            key = key.split("(")[0][:70]
+            by_name[key] = by_name.get(key, 0.0) + evt.device_time_total
+    busy_ms = sum(by_name.values()) / 1e3
+    wall_ms = 1e3 * sum(phases.values())
+    log(f"profile: wall_ms={wall_ms:.1f} (train {1e3 * phases['train']:.1f}, "
+        f"serve {1e3 * phases['serve']:.1f}) device_busy_ms={busy_ms:.2f} "
+        f"idle_share={1 - busy_ms / wall_ms:.4f}")
+    if not by_name:
+        log("profile: the trace holds no device time (not measured)")
+    for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"profile:   {us / 1e3:9.3f} ms  {key}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch import obs
+    from repro_torch.kernels import build, ops
+    from repro_torch.serve import EnsembleRegistry
+
+    smi = nvidia_smi()
+    log(f"device: {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    build.load()
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    for line in build.ptxas_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    kernel_results = check_kernels()
+
+    obs.set_registry(obs.MetricsRegistry())
+    registry = EnsembleRegistry()
+    ops.reset_launches()
+    datas, fits = train(registry)
+    serve(registry, datas)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"launches on the main path: {launches}; fits={fits}")
+    if fits <= 0 or launches["stump_scan"] != fits:
+        raise AssertionError(f"stump_scan launches {launches['stump_scan']} "
+                             f"!= fits {fits}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched")
+    profile_main_path(registry, datas)
+
+    kernels = []
+    for name, (source, replaces) in KERNEL_INFO.items():
+        main_r = kernel_results[name]["main"]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=main_r["max_abs_err"],
+            ms=main_r["ms"], plain_ms=main_r["plain_ms"],
+            bound_ms=main_r["bound_ms"], bound_by=main_r["bound_by"],
+            library_ms=None, kernel_ms=main_r["kernel_ms"],
+            shape=main_r["shape"],
+            large=kernel_results[name]["large"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

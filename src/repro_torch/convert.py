@@ -1,0 +1,57 @@
+"""Carry learners, snapshots and data across from numpy.
+
+Both packages compute on the same inputs when each is handed the same
+numpy arrays: the JAX package's learners, snapshots and domain data turn
+into numpy with ``np.asarray``, and these functions turn numpy into this
+package's equivalents.  Nothing here imports the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.serve.registry import EnsembleSnapshot
+
+F32 = torch.float32
+
+
+def stumps_from_numpy(features: Sequence, thresholds: Sequence,
+                      polarities: Sequence, device="cpu") -> List[Dict]:
+    """Stump param dicts (0-d tensors on ``device``) from per-learner
+    feature indices, thresholds and polarities."""
+    dev = resolve_device(device)
+    return [{"feature": torch.tensor(int(f), dtype=torch.int32, device=dev),
+             "threshold": torch.tensor(np.float32(t), dtype=F32, device=dev),
+             "polarity": torch.tensor(np.float32(p), dtype=F32, device=dev)}
+            for f, t, p in zip(features, thresholds, polarities)]
+
+
+def snapshot_from_numpy(stump_params, alphas, tenant: str, version: int,
+                        train_progress: int, published_at: float = 0.0
+                        ) -> EnsembleSnapshot:
+    """A stump :class:`EnsembleSnapshot` from its packed (T, 4) f32 params
+    and (T,) f32 vote weights, with the same content fingerprint as the
+    snapshot they came from."""
+    sp = torch.from_numpy(np.array(stump_params, np.float32, copy=True))
+    al = torch.from_numpy(np.array(alphas, np.float32, copy=True))
+    if sp.shape != (al.shape[0], 4):
+        raise ValueError(f"stump_params {tuple(sp.shape)} vs alphas "
+                         f"{tuple(al.shape)}")
+    return EnsembleSnapshot(
+        tenant=tenant, version=int(version), published_at=float(published_at),
+        train_progress=int(train_progress), weak_name="stump", alphas=al,
+        stump_params=sp)
+
+
+def domain_data_from_numpy(clients: Sequence, val, test) -> Dict:
+    """The engine's data dict ``{"clients": [(x, y)...], "val": (x, y),
+    "test": (x, y)}`` as f32 numpy arrays, from anything ``np.asarray``
+    takes (the engine moves them to its device)."""
+    def pair(x, y):
+        return (np.ascontiguousarray(np.asarray(x, np.float32)),
+                np.ascontiguousarray(np.asarray(y, np.float32)))
+    return {"clients": [pair(x, y) for x, y in clients],
+            "val": pair(*val), "test": pair(*test)}

@@ -1,0 +1,147 @@
+"""Public kernel entry points.
+
+The tensor's device picks the implementation: a CPU tensor takes the plain
+PyTorch version in :mod:`repro_torch.kernels.ref`; a CUDA tensor launches
+the hand-written CUDA kernel (``csrc/*.cu``, built at first use by
+:mod:`repro_torch.kernels.build`) or raises.  There is no fall-back from
+the card to the plain version.
+
+``LAUNCHES`` counts, per kernel, the launches made in this process: each
+wrapper adds one exactly where it launches its kernel, so a run can show
+that its main path went through the kernels (:func:`reset_launches` zeroes
+the counts).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ref
+
+F32 = torch.float32
+LAUNCHES: Dict[str, int] = {"stump_scan": 0, "stump_vote_batched": 0,
+                            "stump_vote_fp_batched": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@dataclass(frozen=True)
+class KernelPolicy:
+    """Per-tenant kernel choice.  ``fused_fingerprint`` opts a serving
+    tenant with a result cache into the one-launch
+    ``stump_vote_fp_batched`` path (``serve/engine.py``)."""
+    fused_fingerprint: bool = False
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU, False when every one lies on
+    one CUDA device; anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs span devices {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def _f32(name: str, t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != F32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    return t.contiguous()
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+               thresholds: torch.Tensor) -> torch.Tensor:
+    """Weighted stump errors over the (F, T) grid: x (N,F), y/w (N,),
+    thresholds (F,T) -> (F,T) f32 (see :func:`ref.stump_scan_ref`)."""
+    if _on_cpu(x, y, w, thresholds):
+        return ref.stump_scan_ref(x, y, w, thresholds)
+    N, F = x.shape
+    T = thresholds.shape[1]
+    if y.shape != (N,) or w.shape != (N,) or thresholds.shape != (F, T):
+        raise ValueError(f"stump_scan shapes x{tuple(x.shape)} "
+                         f"y{tuple(y.shape)} w{tuple(w.shape)} "
+                         f"thr{tuple(thresholds.shape)}")
+    x, y, w = _f32("x", x), _f32("y", y), _f32("w", w)
+    thr = _f32("thresholds", thresholds)
+    err = torch.empty((F, T), dtype=F32, device=x.device)
+    if F * T == 0:
+        return err
+    from repro_torch.kernels.build import load
+    with torch.cuda.device(x.device):
+        _launch("stump_scan", load().stump_scan_launch,
+                x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
+                err.data_ptr(), 1, N, F, T, _stream(x))
+    return err
+
+
+def _vote_args(xsel, thr, pol, alphas):
+    B, T, N = xsel.shape
+    for name, t in (("thr", thr), ("pol", pol), ("alphas", alphas)):
+        if t.shape != (B, T):
+            raise ValueError(f"{name} must be {(B, T)}, got {tuple(t.shape)}")
+    return (B, T, N, _f32("xsel", xsel), _f32("thr", thr), _f32("pol", pol),
+            _f32("alphas", alphas))
+
+
+def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
+                       pol: torch.Tensor, alphas: torch.Tensor
+                       ) -> torch.Tensor:
+    """Fused stump margin + weighted vote for packed serving batches:
+    xsel (B,T,N), thr/pol/alphas (B,T) -> (B,N) f32.  Zero-alpha padding
+    rows contribute nothing whatever thr/pol padding holds."""
+    if _on_cpu(xsel, thr, pol, alphas):
+        return ref.stump_vote_batched_ref(xsel, thr, pol, alphas)
+    B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
+    out = torch.empty((B, N), dtype=F32, device=xsel.device)
+    if B * N == 0:
+        return out
+    from repro_torch.kernels.build import load
+    with torch.cuda.device(xsel.device):
+        _launch("stump_vote_batched", load().stump_vote_launch,
+                xsel.data_ptr(), thr.data_ptr(), pol.data_ptr(),
+                alphas.data_ptr(), out.data_ptr(), B, T, N, _stream(xsel))
+    return out
+
+
+def stump_vote_fp_batched(xsel: torch.Tensor, thr: torch.Tensor,
+                          pol: torch.Tensor, alphas: torch.Tensor):
+    """One-launch serving path: :func:`stump_vote_batched` plus the two
+    xor-fold fingerprint lanes per column -> ``(margins (B,N) f32,
+    fp0 (B,N), fp1 (B,N))``, the lanes uint32 bits in int32 tensors and
+    identical bit for bit on every device."""
+    if _on_cpu(xsel, thr, pol, alphas):
+        return ref.stump_vote_fp_batched_ref(xsel, thr, pol, alphas)
+    B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
+    dev = xsel.device
+    out = torch.empty((B, N), dtype=F32, device=dev)
+    f0 = torch.empty((B, N), dtype=torch.int32, device=dev)
+    f1 = torch.empty((B, N), dtype=torch.int32, device=dev)
+    if B * N == 0:
+        return out, f0, f1
+    from repro_torch.kernels.build import load
+    with torch.cuda.device(dev):
+        _launch("stump_vote_fp_batched", load().stump_vote_fp_launch,
+                xsel.data_ptr(), thr.data_ptr(), pol.data_ptr(),
+                alphas.data_ptr(), out.data_ptr(), f0.data_ptr(),
+                f1.data_ptr(), B, T, N, _stream(xsel))
+    return out, f0, f1

@@ -1,0 +1,106 @@
+"""Plain PyTorch versions of the hand-written CUDA kernels in this package.
+
+Each ``*_ref`` function defines the semantics its kernel must match, with
+the same signature and layout as the JAX package's ``kernels/ref.py``.
+They are what :mod:`repro_torch.kernels.ops` runs for a tensor on the CPU,
+and what the kernels are held against on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+U32_MASK = 0xFFFFFFFF
+
+
+def stump_scan_ref(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   thresholds: torch.Tensor) -> torch.Tensor:
+    """Weighted error of the polarity-(+1) stump for every (feature,
+    threshold) pair.
+
+    x: (N,F); y: (N,) in {-1,+1}; w: (N,); thresholds: (F,T) -> (F,T) f32.
+
+    err[f,t] = sum_i w_i * [ sign(x[i,f] - thr[f,t]) != y_i ]
+    (sign(0) counts as -1: strict `>` decides the +1 side.)
+
+    The sum is taken in f64 and rounded once to f32, so it is the exact
+    sum's f32 rounding whatever the order of the terms: f64 holds every
+    partial sum of N f32 weights exactly while they span less than
+    2**29 / N in magnitude, and misses it by far less than an f32 step
+    otherwise.  Errors equal in exact arithmetic thus come out equal on
+    every device.  The JAX package sums in f32.
+    """
+    pred = torch.where(x.to(F32)[:, :, None] > thresholds.to(F32)[None],
+                       1.0, -1.0)
+    miss = (pred != y.to(F32)[:, None, None]).to(torch.float64)
+    return torch.einsum("n,nft->ft", w.to(F32).double(), miss).to(F32)
+
+
+def stump_vote_batched_ref(xsel: torch.Tensor, thr: torch.Tensor,
+                           pol: torch.Tensor, alphas: torch.Tensor
+                           ) -> torch.Tensor:
+    """Fused stump prediction + weighted vote (serving stump path).
+
+    xsel: (B, T, N) gathered features xsel[b,t,n] = x_b[n, feat_{b,t}];
+    thr, pol, alphas: (B, T) -> (B, N) f32 ensemble margins.  The 1e-12
+    sign tiebreak matches the stump predictor used at training time.
+    """
+    m = pol.to(F32)[:, :, None] * torch.sign(
+        xsel.to(F32) - thr.to(F32)[:, :, None] + 1e-12)
+    return torch.einsum("bt,btn->bn", alphas.to(F32), m)
+
+
+# Feature-fingerprint mixing constants, shared verbatim with the fused
+# CUDA kernel (kernels/csrc/stump_vote.cu) and the JAX package, so every
+# implementation folds the same bits: two independent 32-bit lanes give a
+# 64-bit fingerprint.  The multiplier 2*t + ODD is always odd (invertible
+# mod 2^32), making the fold position-sensitive; rows are gated on
+# alpha != 0 so zero-alpha padding rows contribute the XOR identity and
+# the fingerprint is invariant under the serving batch's T padding.
+FP_SALT0 = 0x9E3779B9
+FP_SALT1 = 0x85EBCA6B
+FP_ODD0 = 0x0001_0001
+FP_ODD1 = 0x00C2_B2AF
+
+
+def _as_u32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensors holding the same 32
+    bits."""
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def _fp_lanes(xsel: torch.Tensor, alphas: torch.Tensor):
+    """The two uint32 fingerprint lanes of each (batch, column) pair, as
+    int32 tensors holding the uint32 bits (``.numpy().view(np.uint32)``
+    reads them unsigned).
+
+    Lane k folds ``XOR_t [(bits(x[t]) ^ SALT_k) * (2 t + ODD_k)]`` over the
+    rows with ``alpha_t != 0``.  Torch has no wrapping uint32 multiply, so
+    the product is taken in int64 and masked to its low 32 bits (an int64
+    product that overflows still has the right low 32 bits).
+    """
+    bits = xsel.to(F32).contiguous().view(torch.int32).to(torch.int64)
+    bits = bits & U32_MASK                                     # (B, T, N)
+    B, T, N = xsel.shape
+    tt = torch.arange(T, dtype=torch.int64, device=xsel.device)[None, :, None]
+    live = (alphas.to(F32) != 0.0)[:, :, None]
+    lanes = []
+    for salt, odd in ((FP_SALT0, FP_ODD0), (FP_SALT1, FP_ODD1)):
+        c = ((bits ^ salt) * ((2 * tt + odd) & U32_MASK)) & U32_MASK
+        c = torch.where(live, c, torch.zeros_like(c))
+        f = torch.zeros((B, N), dtype=torch.int64, device=xsel.device)
+        for t in range(T):
+            f = f ^ c[:, t, :]
+        lanes.append(_as_u32_bits(f))
+    return lanes[0], lanes[1]
+
+
+def stump_vote_fp_batched_ref(xsel: torch.Tensor, thr: torch.Tensor,
+                              pol: torch.Tensor, alphas: torch.Tensor):
+    """Fused stump vote + per-column feature fingerprint (serving one-launch
+    path): ``(margins (B,N) f32, fp0 (B,N), fp1 (B,N))``, the lanes as
+    uint32 bits in int32 tensors.  The lanes are exact integers that every
+    implementation reproduces bit for bit."""
+    margins = stump_vote_batched_ref(xsel, thr, pol, alphas)
+    f0, f1 = _fp_lanes(xsel, alphas)
+    return margins, f0, f1
