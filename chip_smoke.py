@@ -22,9 +22,19 @@ nonzero (there is no CPU fall-back):
    ``EnsembleServer``, one tenant on the fused fingerprint path, then the
    same batches again through the CPU plain path;
 6. profile: one more training run and serve under torch.profiler, for the
-   card's busy time by kernel.
+   card's busy time by kernel;
+7. fleet: the vectorized fleet profile on ``mobile_100k``'s 100,000
+   clients.  (1) ``stump_scan_batched`` against its plain version on the
+   card, on the scenario's first fit wave and on a large-shard batch;
+   (2) the scenario at full width through ``run_scenario``, legacy trace,
+   seed 0, both modes, cut from 4 rounds to 2: baseline counters and clock
+   must equal the JAX package's, enhanced ones are printed beside its;
+   (3) the same scenario at 4,096 clients on the card, then on the CPU in
+   lockstep; (4) the enhanced full-width run's wall split and the card's
+   busy share over a profiled window.
 
-Launch counts are zeroed just before phase 4 and read just after phase 5.
+Launch counts are zeroed just before phase 4 and read just after phase 5,
+and zeroed again just before the fleet path (7.2) and read just after it.
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -63,6 +73,8 @@ def close(got, want, l1=None) -> bool:
 KERNEL_INFO = {
     "stump_scan": ("src/repro_torch/kernels/csrc/stump_scan.cu",
                    "src/repro/kernels/stump_scan.py:41"),
+    "stump_scan_batched": ("src/repro_torch/kernels/csrc/stump_scan_batched.cu",
+                           "src/repro/kernels/dispatch.py:245"),
     "stump_vote_batched": ("src/repro_torch/kernels/csrc/stump_vote.cu",
                            "src/repro/kernels/ensemble_vote.py:203"),
     "stump_vote_fp_batched": ("src/repro_torch/kernels/csrc/stump_vote.cu",
@@ -545,6 +557,465 @@ def profile_main_path(registry, datas):
         log(f"profile:   {us / 1e3:9.3f} ms  {key}")
 
 
+# ------------------------------------------------------------ phase 7
+CARD = "cuda"
+FLEET_ROUNDS = 2                # mobile_100k's default is 4: cut to 2
+FLEET_LOCKSTEP_CLIENTS = 4096   # FederatedBoostEngine.FLEET_AUTO_CLIENTS
+PROFILE_SYNCS = 2000            # the enhanced run's profiled window
+SCAN_TOL = 1e-7                 # both sum in f64 in one order: expect 0
+LARGE_SCAN = (4096, 333, 64, 16)  # B, N, F, T: edge_vision-sized shards
+INT_FIELDS = ("uplink_bytes", "downlink_bytes", "n_messages", "n_syncs",
+              "learners_merged", "rounds_unavailable")
+# The JAX package's run of the full-width check's configuration, on a CPU:
+# repro.sim.harness.run_scenario("mobile_100k", trace="legacy", seed=0,
+# n_rounds=2, serve=False).  Baseline counters and the clock do not depend
+# on what is learned, so the port must give them exactly; the enhanced ones
+# are printed beside the port's.
+FLEET_REFERENCE = {
+    "baseline": dict(uplink_bytes=56_000_000,
+                     downlink_bytes=295_624_000_000, n_messages=400_000,
+                     n_syncs=2, learners_merged=200_000,
+                     rounds_unavailable=30_133,
+                     sim_time_s=12.15086994809576,
+                     final_val_error=0.2068749964237213,
+                     final_test_error=0.2175000011920929),
+    "enhanced": dict(uplink_bytes=30_400_000,
+                     downlink_bytes=160_027_200_000, n_messages=200_000,
+                     n_syncs=100_000, learners_merged=200_000,
+                     rounds_unavailable=30_133,
+                     sim_time_s=24.04893916706747,
+                     final_val_error=0.2068749964237213,
+                     final_test_error=0.21812500059604645),
+}
+
+
+def fleet_scenario(n_clients=None):
+    """``mobile_100k``, or the same scenario, shard size and overrides at
+    ``n_clients`` clients (4 samples a client, as at full size)."""
+    from dataclasses import replace
+    from repro_torch.sim.scenarios import get_scenario
+    sc = get_scenario("mobile_100k")
+    if n_clients is None:
+        return sc
+    return replace(sc, domain=replace(sc.domain, n_clients=n_clients,
+                                      n_samples=4 * n_clients))
+
+
+def host(t: torch.Tensor) -> torch.Tensor:
+    """A copy on the host that later in-place updates do not reach."""
+    return t.detach().to("cpu", copy=True)
+
+
+def cuda_profile():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def scan_batched_bound(x, y, w, thr):
+    """(bound ms, bound by) for one stump_scan_batched call: each input read
+    once and the error grid written once, against two f32 compares per
+    (b, n, f, t) and one f64 add per miss of these inputs."""
+    B, N, F = x.shape
+    T = thr.shape[2]
+    nbytes = 4 * (B * N * F + 2 * B * N + 2 * B * F * T)
+    misses = 0
+    for n in range(N):
+        pred = x[:, n, :, None] > thr
+        misses += int((pred != (y[:, n] > 0)[:, None, None]).sum())
+    return bound_ms(nbytes, 2.0 * B * N * F * T, misses)
+
+
+def check_scan_batched():
+    """Phase 7.1: the kernel against its plain version on the card, on the
+    first fit wave of mobile_100k (its X, Y, D0 and threshold grids, built
+    by the fleet on the card) and on a large-shard batch."""
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.core.fleet import FleetCore
+    from repro_torch.kernels import ops, ref
+    sc = fleet_scenario()
+    t0 = time.perf_counter()
+    data = sc.make_data(0)
+    eng = FederatedBoostEngine(sc.fedboost_config(seed=0), data, "baseline",
+                               fleet=True, device=CARD)
+    core = FleetCore(eng)
+    log(f"fleet 7.1: mobile_100k data and first-wave inputs on the card in "
+        f"{time.perf_counter() - t0:.2f} s: X {tuple(core.X.shape)} "
+        f"THR {tuple(core.THR.shape)}")
+    gen = torch.Generator(device=CARD).manual_seed(2)
+    B, N, F, T = LARGE_SCAN
+    x = torch.randn((B, N, F), generator=gen, device=CARD)
+    y = torch.where(torch.rand((B, N), generator=gen, device=CARD) < 0.5,
+                    1.0, -1.0)
+    n_valid = torch.randint(200, N + 1, (B,), generator=gen, device=CARD)
+    w = torch.rand((B, N), generator=gen, device=CARD)
+    w = torch.where(torch.arange(N, device=CARD)[None] < n_valid[:, None],
+                    w, 0.0)                      # padding rows weigh 0
+    rows = torch.randint(0, N, (B, F, T), generator=gen, device=CARD)
+    thr = torch.gather(x.transpose(1, 2), 2, rows).contiguous()
+    cases = {"main": (core.X, core.Y, core.D, core.THR),
+             "large": (x, y, w, thr)}
+    results = {}
+    for label, args in cases.items():
+        got = ops.stump_scan_batched(*args)
+        want = ref.stump_scan_batched_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= SCAN_TOL:
+            raise AssertionError(f"stump_scan_batched {label}: max err {err}")
+        del got, want
+        b, by = scan_batched_bound(*args)
+        results[label] = dict(
+            shape=[args[0].shape[0], args[0].shape[1], args[0].shape[2],
+                   args[3].shape[2]], max_abs_err=err,
+            ms=cuda_ms(lambda: ops.stump_scan_batched(*args), 20),
+            kernel_ms=device_ms(lambda: ops.stump_scan_batched(*args), 10,
+                                "stump_scan_batched_kernel"),
+            plain_ms=cuda_ms(lambda: ref.stump_scan_batched_ref(*args), 3),
+            bound_ms=b, bound_by=by, library_ms=None)
+        r = results[label]
+        log(f"kernel stump_scan_batched {label} {r['shape']}: "
+            f"max_abs_err={err:.3g} ms={r['ms']:.4f} "
+            f"kernel_ms={r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+    del core, eng, cases, args
+    torch.cuda.empty_cache()
+    return results
+
+
+class FleetRecorder:
+    """Timing and logging wrappers around the fleet's methods while a run
+    goes on: per-mode wall, waves, fits and launches; the wall split of the
+    run into fit waves, local updates, server merges, catch-ups and the
+    rest; every wave's picks and distributions on the host; and, in an
+    enhanced run, a torch.profiler window (CUDA activity only) over its
+    start and first ``PROFILE_SYNCS`` syncs.  The wrappers only measure:
+    they call the methods unchanged."""
+
+    PARTS = {"_fit_wave": "fit waves", "_local_update": "local updates",
+             "_merge_window": "server merges",
+             "_catch_up_client": "client catch-ups",
+             "_catch_up_fleet": "fleet catch-ups"}
+
+    def __init__(self, profile: bool):
+        from repro_torch.core import fleet
+        self.cls = fleet.FleetCore
+        self.saved = {n: getattr(self.cls, n)
+                      for n in (*self.PARTS, "run")}
+        self.profile = profile
+        self.runs = {}
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, self._wrap(name, fn))
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+    def _wrap(self, name, fn):
+        rec = self
+
+        def wrapper(core, *args, **kwargs):
+            r = rec.runs.get(core.m.mode)
+            if name == "run":
+                return rec._run(core, fn)
+            t0 = time.perf_counter()
+            out = fn(core, *args, **kwargs)
+            if name in ("_fit_wave", "_local_update", "_catch_up_fleet"):
+                torch.cuda.synchronize()          # a few calls a run
+            r["parts"][name] += time.perf_counter() - t0
+            if name == "_fit_wave":
+                r["waves"].append((np.asarray(args[0]).copy(),
+                                   *(host(a).numpy() for a in out),
+                                   host(core.D).numpy()))
+            if name == "_catch_up_client":
+                r["syncs"] += 1
+                if r.get("prof") is not None and r["syncs"] == PROFILE_SYNCS:
+                    rec._stop_profile(r)
+            return out
+        return wrapper
+
+    def _run(self, core, fn):
+        from repro_torch import obs
+        from repro_torch.kernels import ops
+        mode = core.m.mode
+        reg = obs.get_registry()
+        r = self.runs[mode] = dict(parts={n: 0.0 for n in self.PARTS},
+                                   waves=[], syncs=0, prof=None)
+        before = (ops.LAUNCHES["stump_scan_batched"],
+                  reg.counter("train.fit_batches").value,
+                  reg.counter("train.fits").value)
+        if self.profile and mode == "enhanced":
+            r["prof"] = cuda_profile()
+            r["prof"].start()
+            r["prof_t0"] = time.perf_counter()
+        t0 = time.perf_counter()
+        out = fn(core)
+        torch.cuda.synchronize()
+        r["wall"] = time.perf_counter() - t0
+        if r["prof"] is not None:
+            self._stop_profile(r)
+        r["launches"] = ops.LAUNCHES["stump_scan_batched"] - before[0]
+        r["fit_batches"] = int(reg.counter("train.fit_batches").value
+                               - before[1])
+        r["fits"] = int(reg.counter("train.fits").value - before[2])
+        return out
+
+    @staticmethod
+    def _stop_profile(r):
+        torch.cuda.synchronize()
+        r["prof_wall"] = time.perf_counter() - r["prof_t0"]
+        r["prof_syncs"] = r["syncs"]
+        prof, r["prof"] = r["prof"], None
+        prof.stop()
+        busy = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                key = evt.name.replace("(anonymous namespace)::", "")
+                key = key.split("(")[0][:60]
+                busy[key] = busy.get(key, 0.0) + evt.device_time_total / 1e6
+        r["prof_busy"] = busy
+
+
+def _slot_errors(x, y, w, thr):
+    """Both polarities' weighted errors of every stump of one slot, summed
+    in f64 on the host: (2 * F * T,)."""
+    x, y, w, thr = (np.asarray(a, np.float64) for a in (x, y, w, thr))
+    miss = np.where(x[:, :, None] > thr[None], 1.0, -1.0) != y[:, None, None]
+    e = np.einsum("n,nft->ft", w, miss).reshape(-1)
+    return np.concatenate([e, 1.0 - e])
+
+
+def _pick_gap(x, y, w, thr, a, b):
+    """Exact error of pick ``a`` minus that of pick ``b`` on one slot's
+    inputs; a pick is (feature, threshold, polarity)."""
+    errs = _slot_errors(x, y, w, thr)
+    F, T = thr.shape
+
+    def at(p):
+        f, th, pol = int(p[0]), np.float32(p[1]), float(p[2])
+        t = int(np.nonzero(thr[f] == th)[0][0])
+        return errs[f * T + t + (0 if pol > 0 else F * T)]
+    return at(a) - at(b)
+
+
+def _first_split(card_waves, cpu_waves, X, Y, THR):
+    """The first (wave, slot) where two logged runs pick apart, with the
+    exact gap of the two picks on the card's inputs; None if none does."""
+    for i, (cw, pw) in enumerate(zip(card_waves, cpu_waves)):
+        slots, f, thr, pol, D = cw
+        if not np.array_equal(slots, pw[0]):
+            return i, None, "the waves hold other slots"
+        diff = np.nonzero((f != pw[1]) | (thr != pw[2]) | (pol != pw[3]))[0]
+        if len(diff):
+            j = int(diff[0])
+            b = int(slots[j])
+            gap = _pick_gap(X[b], Y[b], D[b], THR[b],
+                            (f[j], thr[j], pol[j]),
+                            (pw[1][j], pw[2][j], pw[3][j]))
+            return i, b, gap
+    return None
+
+
+def fleet_full_width():
+    """Phase 7.2 (and the wall split of 7.4): mobile_100k at full width
+    through the harness, both modes, on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.sim.harness import run_scenario, summarize
+    rec = FleetRecorder(profile=True)
+    try:
+        t0 = time.perf_counter()
+        rep = run_scenario("mobile_100k", trace="legacy", seed=0,
+                           n_rounds=FLEET_ROUNDS, device=CARD)
+        total = time.perf_counter() - t0
+    finally:
+        rec.close()
+    launches = dict(ops.LAUNCHES)
+    log(f"fleet 7.2: run_scenario mobile_100k legacy seed 0 "
+        f"{FLEET_ROUNDS} rounds on {CARD}: {total:.2f} s with data")
+    for line in summarize(rep).splitlines():
+        log(f"fleet 7.2: {line}")
+    log(f"fleet 7.2: row {json.dumps(rep.row)}")
+    for mode in ("baseline", "enhanced"):
+        m, r, want = getattr(rep, mode), rec.runs[mode], FLEET_REFERENCE[mode]
+        got = {k: getattr(m, k) for k in INT_FIELDS}
+        log(f"fleet 7.2 {mode}: wall_s={r['wall']:.3f} waves="
+            f"{r['fit_batches']} fits={r['fits']} stump_scan_batched "
+            f"launches={r['launches']} {got} sim_time_s={m.sim_time_s!r} "
+            f"val_err={m.final_val_error!r} test_err={m.final_test_error!r}")
+        ref_line = {k: want[k] for k in INT_FIELDS}
+        log(f"fleet 7.2 {mode} reference: {ref_line} sim_time_s="
+            f"{want['sim_time_s']!r} val_err={want['final_val_error']!r} "
+            f"test_err={want['final_test_error']!r}")
+        if r["launches"] != r["fit_batches"] or r["launches"] < 1:
+            raise AssertionError(f"{mode}: {r['launches']} launches for "
+                                 f"{r['fit_batches']} waves")
+        if r["fits"] != m.learners_merged:
+            raise AssertionError(f"{mode}: {r['fits']} fits, "
+                                 f"{m.learners_merged} merged")
+        for v in (m.final_val_error, m.final_test_error, m.sim_time_s):
+            if not math.isfinite(v):
+                raise AssertionError(f"non-finite metric in {mode}")
+        diff = {k: (got[k], want[k]) for k in INT_FIELDS
+                if got[k] != want[k]}
+        if m.sim_time_s != want["sim_time_s"]:
+            diff["sim_time_s"] = (m.sim_time_s, want["sim_time_s"])
+        if mode == "baseline" and diff:
+            raise AssertionError(f"baseline counters differ from the "
+                                 f"reference's: {diff}")
+        if mode == "enhanced":
+            log(f"fleet 7.2 enhanced: counters "
+                + ("equal the reference's" if not diff else
+                   f"differ from the reference's: {diff}"))
+            if diff:
+                enhanced_split(rec.runs["enhanced"]["waves"])
+    if not rep.within_band:
+        raise AssertionError(f"mobile_100k out of band: {rep.band_failures}")
+    wall_split(rec.runs["enhanced"])
+    return launches, rec.runs
+
+
+def enhanced_split(card_waves):
+    """Where the card's enhanced run and the CPU's own run of the same
+    configuration first pick apart (as phase 4 does at the main path)."""
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.core.fleet import FleetCore
+    sc = fleet_scenario()
+    data = sc.make_data(0)
+    cfg = sc.fedboost_config(seed=0, n_rounds=FLEET_ROUNDS)
+    rec = FleetRecorder(profile=False)
+    try:
+        eng = FederatedBoostEngine(cfg, data, "enhanced", fleet=True,
+                                   device="cpu")
+        eng.run()
+    finally:
+        rec.close()
+    core = FleetCore(FederatedBoostEngine(cfg, data, "baseline", fleet=True,
+                                          device="cpu"))
+    split = _first_split(card_waves, rec.runs["enhanced"]["waves"],
+                         core.X.numpy(), core.Y.numpy(), core.THR.numpy())
+    log("fleet 7.2 enhanced: the cpu's own run "
+        + ("picks as the card's at every fit" if split is None else
+           f"splits from the card's at wave {split[0]}, client {split[1]}: "
+           f"exact gap {split[2]} on the card's inputs"))
+
+
+def wall_split(r):
+    """Phase 7.4: where the enhanced full-width run's wall time went, and
+    the card's busy share over the profiled window."""
+    parts = {FleetRecorder.PARTS[k]: v for k, v in r["parts"].items()}
+    rest = r["wall"] - sum(parts.values())
+    log(f"fleet 7.4 enhanced wall split (s): wall={r['wall']:.3f} "
+        + " ".join(f"{k.replace(' ', '_')}={v:.3f}" for k, v in parts.items())
+        + f" rest={rest:.3f} (syncs={r['syncs']})")
+    busy = sum(r["prof_busy"].values())
+    log(f"fleet 7.4 profiled window: start of the run through sync "
+        f"{r['prof_syncs']}: wall_s={r['prof_wall']:.3f} device_busy_s="
+        f"{busy:.4f} busy_share={busy / r['prof_wall']:.4f}")
+    for key, sec in sorted(r["prof_busy"].items(), key=lambda kv: -kv[1])[:8]:
+        log(f"fleet 7.4   {1e3 * sec:10.3f} ms  {key}")
+
+
+def fleet_lockstep():
+    """Phase 7.3: mobile_100k's configuration at 4,096 clients, both modes,
+    on the card; then on the CPU handed the card's pick at every wave.
+    Every counter and the clock must agree, and the CPU's own pick on the
+    card's inputs must be the card's or tie it to within ROUNDING.  The
+    CPU's own run is set beside the card's, and where the two first pick
+    apart is printed."""
+    from dataclasses import replace
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.models import weak
+    sc = fleet_scenario(FLEET_LOCKSTEP_CLIENTS)
+    data = sc.make_data(0)
+    cfg = sc.fedboost_config(seed=0)
+    base = weak.get_weak_learner("stump")
+    for mode in ("baseline", "enhanced"):
+        card = []
+
+        def logged(x, y, w, thr):
+            p = base.fit_batched(x, y, w, thr)
+            card.append(tuple(host(a) for a in (x, y, w, thr))
+                        + ({k: host(v) for k, v in p.items()},))
+            return p
+
+        def run(device, fit_batched):
+            return FederatedBoostEngine(
+                cfg, data, mode, behavior_for=sc.behavior_for("legacy", 0),
+                fleet=True, weak=replace(base, fit_batched=fit_batched),
+                device=device).run()
+        m_card = run(CARD, logged)
+        replay = iter(card)
+        ties = [0]
+
+        def lockstep(x, y, w, thr):
+            gx, gy, gw, gthr, gp = next(replay)
+            if not (torch.equal(x, gx) and torch.equal(y, gy)
+                    and torch.equal(thr, gthr)):
+                raise AssertionError(f"{mode}: a wave's shards or grids "
+                                     f"differ from the card's")
+            if not torch.allclose(w, gw, rtol=1e-4, atol=1e-9):
+                raise AssertionError(f"{mode}: a wave's distributions "
+                                     f"differ by {float((w - gw).abs().max())}")
+            mine = base.fit_batched(gx, gy, gw, gthr)
+            keys = ("feature", "threshold", "polarity")
+            same = torch.ones(len(gx), dtype=torch.bool)
+            for k in keys:
+                same &= mine[k].to(gp[k].dtype) == gp[k]
+            for j in torch.nonzero(~same)[:, 0].tolist():
+                gap = _pick_gap(gx[j].numpy(), gy[j].numpy(), gw[j].numpy(),
+                                gthr[j].numpy(),
+                                [float(gp[k][j]) for k in keys],
+                                [float(mine[k][j]) for k in keys])
+                if abs(gap) > ROUNDING:
+                    raise AssertionError(f"{mode}: card and cpu picks apart "
+                                         f"by {gap} at slot {j}")
+                ties[0] += 1
+            return gp
+        m_cpu = run("cpu", lockstep)
+        if next(replay, None) is not None:
+            raise AssertionError(f"{mode}: the cpu run made fewer waves")
+        keys = INT_FIELDS + ("sim_time_s",)
+        diff = {k: (getattr(m_card, k), getattr(m_cpu, k)) for k in keys
+                if getattr(m_card, k) != getattr(m_cpu, k)}
+        if diff:
+            raise AssertionError(f"{mode}: card vs cpu counters {diff}")
+        fits = sum(len(c[0]) for c in card)
+        log(f"fleet 7.3 {mode} at {FLEET_LOCKSTEP_CLIENTS} clients: cpu "
+            f"lockstep counters equal the card's "
+            f"{ {k: getattr(m_card, k) for k in keys} }; {len(card)} waves, "
+            f"{fits} fits, cpu pick == card pick at {fits - ties[0]} "
+            f"(rounding ties {ties[0]}); test error card "
+            f"{m_card.final_test_error:.4f} cpu {m_cpu.final_test_error:.4f}")
+        own = []
+
+        def cpu_own(x, y, w, thr):
+            p = base.fit_batched(x, y, w, thr)
+            own.append(p)
+            return p
+        run("cpu", cpu_own)
+        split = None
+        for i, ((gx, gy, gw, gthr, gp), o) in enumerate(zip(card, own)):
+            keys = ("feature", "threshold", "polarity")
+            if len(o["feature"]) != len(gx):
+                split = (i, None, "all", float("nan"))   # other slots
+                break
+            apart = torch.zeros(len(gx), dtype=torch.bool)
+            for k in keys:
+                apart |= o[k].to(gp[k].dtype) != gp[k]
+            if apart.any():
+                j = int(torch.nonzero(apart)[0, 0])
+                gap = _pick_gap(gx[j].numpy(), gy[j].numpy(), gw[j].numpy(),
+                                gthr[j].numpy(),
+                                [float(gp[k][j]) for k in keys],
+                                [float(o[k][j]) for k in keys])
+                split = (i, j, int(apart.sum()), gap)
+                break
+        log(f"fleet 7.3 {mode}: the cpu's own run "
+            + ("picks as the card's at every wave" if split is None else
+               f"first picks apart from the card's at wave {split[0]} "
+               f"({split[2]} of its slots), first at slot {split[1]}: "
+               f"exact gap {split[3]:.3g} on the card's inputs"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -568,6 +1039,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     kernel_results = check_kernels()
+    kernel_results["stump_scan_batched"] = check_scan_batched()
 
     obs.set_registry(obs.MetricsRegistry())
     registry = EnsembleRegistry()
@@ -580,10 +1052,22 @@ def main() -> int:
     if fits <= 0 or launches["stump_scan"] != fits:
         raise AssertionError(f"stump_scan launches {launches['stump_scan']} "
                              f"!= fits {fits}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("stump_scan", "stump_vote_batched", "stump_vote_fp_batched"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
     profile_main_path(registry, datas)
+
+    # the fleet path: counts zeroed just before it and read just after
+    ops.reset_launches()
+    fleet_launches, fleet_runs = fleet_full_width()
+    log(f"launches on the fleet path: {fleet_launches}")
+    waves = sum(r["fit_batches"] for r in fleet_runs.values())
+    if fleet_launches["stump_scan_batched"] != waves or waves < 1:
+        raise AssertionError(f"stump_scan_batched launches "
+                             f"{fleet_launches['stump_scan_batched']} != "
+                             f"waves {waves}")
+    launches["stump_scan_batched"] = fleet_launches["stump_scan_batched"]
+    fleet_lockstep()
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

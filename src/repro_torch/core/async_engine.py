@@ -51,13 +51,23 @@ in exactly the legacy call order, which keeps results bit-for-bit
 identical to ``engine="loop"`` (the retained client-at-a-time legacy
 loops, kept as the golden parity oracle) at equal seeds.
 
+``fleet=True`` (auto-enabled at >= ``FLEET_AUTO_CLIENTS`` clients)
+switches the event core to the vectorized fleet profile
+(:mod:`repro_torch.core.fleet`): stump fits are deferred and batched into
+``stump_scan_batched`` launches, and per-sync server math runs vectorized
+in numpy on the host.  Communication accounting is integer math and stays
+exact; floating-point results match the per-client profile up to
+summation order.  This is the profile that makes 100k+-client scenarios
+tractable.
+
 Device
 ------
 Every client's ``x``, ``y`` and distribution ``D``, and the running
 validation/test margins, live on the engine's ``device`` (the card by
 default; asking for it without one raises).  Each weak-learner fit runs
-the ``stump_scan`` kernel there.  The vectorized fleet profile and
-contribution audits are not ported yet.
+the ``stump_scan`` kernel there.  Under the fleet profile the clients keep
+their numpy shards and ``D=None``: the fleet stacks them on the device
+itself, one copy per array.  Contribution audits are not ported yet.
 """
 from __future__ import annotations
 
@@ -124,7 +134,9 @@ class _Client:
     cid: int
     x: torch.Tensor
     y: torch.Tensor
-    D: torch.Tensor
+    # D is None only under the fleet profile, which keeps the whole
+    # fleet's distributions stacked in one tensor (repro_torch.core.fleet)
+    D: Optional[torch.Tensor]
     behavior: ClientBehavior      # availability/compute/link model
     clock: float = 0.0
     local_round: int = 0
@@ -142,8 +154,7 @@ class FederatedBoostEngine:
 
     BASE_ROUND_S = 1.0            # nominal compute seconds per boosting round
     LATENCY_S = 0.05
-    # fleets at/above this size select the vectorized fleet profile, which
-    # is not ported yet
+    # fleets at/above this size auto-select the vectorized fleet profile
     FLEET_AUTO_CLIENTS = 4096
 
     def __init__(self, cfg: FedBoostConfig, data: Dict, mode: str,
@@ -157,21 +168,27 @@ class FederatedBoostEngine:
         assert engine in ("events", "loop")
         # engine="events": the event-queue virtual-clock core (default);
         # engine="loop": the legacy client-at-a-time loops, kept as the
-        # bit-for-bit parity oracle.  fleet=None would select the
-        # vectorized fleet profile at FLEET_AUTO_CLIENTS+ clients.
+        # bit-for-bit parity oracle.  fleet=None auto-selects the
+        # vectorized fleet profile at FLEET_AUTO_CLIENTS+ clients; the
+        # fleet profile always runs on the event core.
         n_fleet = len(data["clients"])
-        if fleet or (fleet is None and n_fleet >= self.FLEET_AUTO_CLIENTS):
-            raise NotImplementedError(
-                "the vectorized fleet profile is not ported yet")
+        self._fleet = (bool(fleet) if fleet is not None
+                       else n_fleet >= self.FLEET_AUTO_CLIENTS)
+        if self._fleet:
+            engine = "events"
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mode = mode
         self.engine_kind = engine
         self.weak = weak or get_weak_learner(cfg.weak_learner)
         self.rng = np.random.RandomState(cfg.seed)
-        # {clients: [(x,y)...], val:(x,y), test:(x,y)}, moved to the device
+        # {clients: [(x,y)...], val:(x,y), test:(x,y)}, moved to the device;
+        # the fleet profile keeps the client shards as they came and stacks
+        # them on the device itself (one copy per client would cost two
+        # copies each at 100k+ clients)
         self.data = {
-            "clients": [self._to_device(x, y) for x, y in data["clients"]],
+            "clients": (list(data["clients"]) if self._fleet else
+                        [self._to_device(x, y) for x, y in data["clients"]]),
             "val": self._to_device(*data["val"]),
             "test": self._to_device(*data["test"]),
         }
@@ -197,6 +214,10 @@ class FederatedBoostEngine:
         self.behavior_for = behavior_for
         self.clients = []
         for cid, (x, y) in enumerate(self.data["clients"]):
+            if self._fleet:
+                self.clients.append(_Client(
+                    cid=cid, x=x, y=y, D=None, behavior=behavior_for(cid)))
+                continue
             n = x.shape[0]
             if cfg.balanced_init:
                 # class-balanced D_0: standard boosting practice for rare-
@@ -238,6 +259,11 @@ class FederatedBoostEngine:
 
     def attach_audit(self, audit=None):
         raise NotImplementedError("contribution audits are not ported yet")
+
+    @property
+    def fleet_profile(self) -> bool:
+        """Whether this engine runs the vectorized fleet path."""
+        return self._fleet
 
     def publish(self, clock: float):
         """The publish() hook: snapshot the current global ensemble into
@@ -373,8 +399,11 @@ class FederatedBoostEngine:
                                          c.y, h)
         c.last_merged_idx = hi
 
-    def _record(self, t: float) -> None:
-        err = self._val_error()
+    def _record(self, t: float, err: Optional[float] = None) -> None:
+        # the fleet profile passes its numpy-computed error to keep the
+        # per-sync hot path off the device
+        if err is None:
+            err = self._val_error()
         m = self.metrics
         m.val_error_curve.append((t, m.learners_merged, err))
         if (self.cfg.target_error > 0 and err <= self.cfg.target_error
@@ -384,7 +413,10 @@ class FederatedBoostEngine:
 
     # ---------------------------------------------------------------- run
     def run(self) -> RunMetrics:
-        if self.engine_kind == "events":
+        if self._fleet:
+            from repro_torch.core.fleet import FleetCore
+            FleetCore(self).run()
+        elif self.engine_kind == "events":
             if self.mode == "baseline":
                 self._run_baseline_events()
             else:

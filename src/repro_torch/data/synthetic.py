@@ -41,7 +41,8 @@ def _base_problem(rng: np.random.RandomState, n: int, f: int,
 def make_domain_data(cfg: DomainConfig, seed: int = 0,
                      val_frac: float = 0.15, test_frac: float = 0.15,
                      partitioner: str = "dirichlet",
-                     shards_per_client: int = 2) -> Dict:
+                     shards_per_client: int = 2,
+                     as_numpy: bool = True) -> Dict:
     """Returns {"clients": [(x,y)...], "val": (x,y), "test": (x,y)}.
 
     ``partitioner`` selects the client split (scenario registry binding):
@@ -50,7 +51,9 @@ def make_domain_data(cfg: DomainConfig, seed: int = 0,
     ``shards_per_client`` shards per client).
 
     Every array is a contiguous numpy array; the engine moves the client
-    shards and the val/test sets onto its own device."""
+    shards and the val/test sets onto its own device.  ``as_numpy`` is
+    accepted so that a scenario's data kwargs pass through unchanged: the
+    arrays are numpy whatever it says."""
     # stable across processes (python's hash() is salted per-interpreter)
     name_tag = zlib.crc32(cfg.name.encode()) % 997
     rng = np.random.RandomState(seed * 1000 + name_tag)

@@ -26,9 +26,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every exported launcher: (pointers..., ints..., stream)
 SIGNATURES = {
     "stump_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "stump_vote_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "stump_vote_fp_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -21,7 +21,8 @@ import torch
 from repro_torch.kernels import ref
 
 F32 = torch.float32
-LAUNCHES: Dict[str, int] = {"stump_scan": 0, "stump_vote_batched": 0,
+LAUNCHES: Dict[str, int] = {"stump_scan": 0, "stump_scan_batched": 0,
+                            "stump_vote_batched": 0,
                             "stump_vote_fp_batched": 0}
 
 
@@ -91,6 +92,34 @@ def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         _launch("stump_scan", load().stump_scan_launch,
                 x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
                 err.data_ptr(), 1, N, F, T, _stream(x))
+    return err
+
+
+def stump_scan_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                       thresholds: torch.Tensor) -> torch.Tensor:
+    """Per-slot weighted stump errors for a stacked fleet batch: x (B,N,F),
+    y/w (B,N), thresholds (B,F,T) -> (B,F,T) f32 (see
+    :func:`ref.stump_scan_batched_ref`).  Any B is launched as it is: the
+    kernel's grid is flat, so no slot padding is needed."""
+    if _on_cpu(x, y, w, thresholds):
+        return ref.stump_scan_batched_ref(x, y, w, thresholds)
+    B, N, F = x.shape
+    T = thresholds.shape[2]
+    if (y.shape != (B, N) or w.shape != (B, N)
+            or thresholds.shape != (B, F, T)):
+        raise ValueError(f"stump_scan_batched shapes x{tuple(x.shape)} "
+                         f"y{tuple(y.shape)} w{tuple(w.shape)} "
+                         f"thr{tuple(thresholds.shape)}")
+    x, y, w = _f32("x", x), _f32("y", y), _f32("w", w)
+    thr = _f32("thresholds", thresholds)
+    err = torch.empty((B, F, T), dtype=F32, device=x.device)
+    if B * F * T == 0:
+        return err
+    from repro_torch.kernels.build import load
+    with torch.cuda.device(x.device):
+        _launch("stump_scan_batched", load().stump_scan_batched_launch,
+                x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
+                err.data_ptr(), B, N, F, T, _stream(x))
     return err
 
 

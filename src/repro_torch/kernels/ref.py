@@ -36,6 +36,31 @@ def stump_scan_ref(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return torch.einsum("n,nft->ft", w.to(F32).double(), miss).to(F32)
 
 
+def stump_scan_batched_ref(x: torch.Tensor, y: torch.Tensor,
+                           w: torch.Tensor, thresholds: torch.Tensor
+                           ) -> torch.Tensor:
+    """Per-slot weighted stump errors for a stacked fleet batch.
+
+    x: (B,N,F); y, w: (B,N); thresholds: (B,F,T) -> (B,F,T) f32, which is
+    :func:`stump_scan_ref` per batch slot.  A row or slot of zero weight
+    contributes nothing, so ragged client shards stack safely.
+
+    The sum runs over n = 0..N-1 in order, in f64, and is rounded once to
+    f32: the rule of :func:`stump_scan_ref`, and the order the CUDA kernel
+    (``csrc/stump_scan_batched.cu``) sums in, so the two agree bit for bit.
+    A loop over the rows keeps the working set at (B,F,T) whatever N is.
+    """
+    x, y, thresholds = x.to(F32), y.to(F32), thresholds.to(F32)
+    w = w.to(F32).double()
+    B, N, _ = x.shape
+    err = torch.zeros(thresholds.shape, dtype=torch.float64, device=x.device)
+    for n in range(N):
+        pred = torch.where(x[:, n, :, None] > thresholds, 1.0, -1.0)
+        miss = pred != y[:, n, None, None]
+        err += miss * w[:, n, None, None]
+    return err.to(F32)
+
+
 def stump_vote_batched_ref(xsel: torch.Tensor, thr: torch.Tensor,
                            pol: torch.Tensor, alphas: torch.Tensor
                            ) -> torch.Tensor:

@@ -4,7 +4,9 @@ A stump is trained against a *weighted* sample distribution D_t(i), as the
 paper's boosting loop requires, by exhaustive search over (feature,
 threshold, polarity) for the least weighted error.  The search's hot spot
 is the ``stump_scan`` kernel (:mod:`repro_torch.kernels.ops`), which the
-card always takes and the CPU replaces with its plain version.
+card always takes and the CPU replaces with its plain version; the fleet
+profile fits a whole wave of client shards at once through
+``stump_scan_batched``.
 
 A weak learner is a params dict of 0-d tensors on the caller's device plus
 the spec's predict function; the params' byte size is what crosses the
@@ -14,7 +16,7 @@ accounting measures.  The logistic and MLP families are not ported yet.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -107,6 +109,73 @@ def _pick_stump(err_pos: torch.Tensor, thresholds: torch.Tensor
             "polarity": pol}
 
 
+def fit_stump_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                      thresholds: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Fit one stump per fleet slot in a single ``stump_scan_batched``
+    launch.
+
+    x: (B,N,F); y, w: (B,N); thresholds: (B,F,T).  Returns
+    {"feature", "threshold", "polarity"} tensors of shape (B,), each slot
+    picked by :func:`_pick_stump`'s rule.  ``w`` rows need not be
+    normalized (the argmin is scale-invariant); the convention is to pass
+    D_t rows directly.
+    """
+    err_pos = kops.stump_scan_batched(x, y, w, thresholds)
+    return _pick_stump_batched(err_pos, thresholds)
+
+
+def _pick_stump_batched(err_pos: torch.Tensor, thresholds: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+    """:func:`_pick_stump` row by row: err_pos (B,F,T) -> per slot the
+    first least cell of each polarity (row-major over (F,T)), polarity +1
+    where the two are equal.  ``torch.argmin`` returns the first index of a
+    minimum on every device."""
+    B, F, T = err_pos.shape
+    e_pos = err_pos.reshape(B, F * T)
+    e_neg = 1.0 - e_pos
+    ip = torch.argmin(e_pos, dim=1, keepdim=True)
+    ineg = torch.argmin(e_neg, dim=1, keepdim=True)
+    take_pos = e_pos.gather(1, ip) <= e_neg.gather(1, ineg)
+    cell = torch.where(take_pos, ip, ineg)
+    thr = thresholds.reshape(B, F * T).gather(1, cell)[:, 0]
+    pol = torch.where(take_pos[:, 0], 1.0, -1.0).to(F32)
+    return {"feature": (cell[:, 0] // T).to(torch.int32), "threshold": thr,
+            "polarity": pol}
+
+
+def stump_thresholds_batched(x: torch.Tensor, n_valid: torch.Tensor,
+                             n_thresholds: int = 16) -> torch.Tensor:
+    """Per-client quantile threshold grids for a padded fleet stack.
+
+    x: (B,N,F) with slot b valid in rows [0, n_valid[b]) -> (B,F,T) f32,
+    bit-equal to the JAX package's grid.  Padding rows become +inf, so they
+    sink to the bottom of each slot's sort, and the quantile position is
+    scaled by the slot's true row count.  The grid is ``low * lw + high *
+    hw`` with the low product fused into a multiply-add, as the JAX
+    package's compiled batched quantile evaluates it at every F: the fused
+    step runs in f64, where an f32 product is exact, and rounds once.
+    """
+    x = x.to(F32)
+    B, N, F = x.shape
+    dev = x.device
+    qs = _quantile_levels(n_thresholds, dev)                  # (T,)
+    n_valid = n_valid.to(dev)
+    valid = torch.arange(N, device=dev)[None, :] < n_valid[:, None]
+    xs = torch.sort(torch.where(valid[:, :, None], x, torch.inf),
+                    dim=1).values
+    pos = qs[None, :] * (n_valid[:, None].to(F32) - 1.0)      # (B,T) f32
+    low = torch.floor(pos)
+    hw = (pos - low)[:, :, None]
+    lw = 1.0 - hw
+    T = qs.shape[0]
+
+    def take(idx):
+        return torch.gather(xs, 1, idx.long()[:, :, None].expand(B, T, F))
+    grid = (take(low).double() * lw.double()
+            + (take(torch.ceil(pos)) * hw).double()).to(F32)  # (B,T,F)
+    return grid.permute(0, 2, 1).contiguous()
+
+
 STUMP_BYTES = 3 * 4   # feature idx + threshold + polarity
 
 
@@ -116,6 +185,9 @@ class WeakLearnerSpec:
     fit: Callable              # (x, y, w, generator) -> params
     predict: Callable          # (params, x) -> margins (N,)
     param_bytes: Callable      # params -> bytes on the wire
+    # (x, y, w, thresholds) stacked per slot -> per-slot params: the fleet
+    # profile's batched fit (stumps only)
+    fit_batched: Optional[Callable] = None
 
 
 def get_weak_learner(name: str, n_thresholds: int = 16) -> WeakLearnerSpec:
@@ -125,7 +197,7 @@ def get_weak_learner(name: str, n_thresholds: int = 16) -> WeakLearnerSpec:
         def fit(x, y, w, generator=None):
             return fit_stump(x, y, w, stump_thresholds(x, n_thresholds))
         return WeakLearnerSpec("stump", fit, predict_stump,
-                               lambda p: STUMP_BYTES)
+                               lambda p: STUMP_BYTES, fit_stump_batched)
     if name in ("logistic", "mlp"):
         raise NotImplementedError(
             f"weak learner {name!r} is not ported yet; only 'stump' is")

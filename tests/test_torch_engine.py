@@ -237,13 +237,22 @@ def test_counters_match_reference_table(pair):
 
 
 def test_engine_refuses_unported_profiles():
-    x = np.zeros((8, 3), np.float32)
-    y = np.ones(8, np.float32)
+    """Contribution audits are still refused; the fleet profile, which this
+    test once saw refused too, now runs and gives the per-client profile's
+    accounting (``tests/test_torch_fleet.py`` holds it to the reference)."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 3).astype(np.float32)
+    y = np.where(rng.rand(8) < 0.5, 1.0, -1.0).astype(np.float32)
     data = {"clients": [(x, y)], "val": (x, y), "test": (x, y)}
-    cfg = FedBoostConfig(n_clients=1, n_rounds=1)
-    with pytest.raises(NotImplementedError):
-        FederatedBoostEngine(cfg, data, "enhanced", fleet=True,
-                             device="cpu")
+    cfg = FedBoostConfig(n_clients=1, n_rounds=2)
+    for mode in ("baseline", "enhanced"):
+        fleet = FederatedBoostEngine(cfg, data, mode, fleet=True,
+                                     device="cpu")
+        assert fleet.fleet_profile
+        fm = fleet.run()
+        pm = FederatedBoostEngine(cfg, data, mode, device="cpu").run()
+        for k in COUNTERS + ("sim_time_s",):
+            assert getattr(fm, k) == getattr(pm, k), (mode, k)
     eng = FederatedBoostEngine(cfg, data, "enhanced", device="cpu")
     with pytest.raises(NotImplementedError):
         eng.attach_audit()

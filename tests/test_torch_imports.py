@@ -28,7 +28,10 @@ def _port_modules():
 
 def test_importing_every_module_loads_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.core.async_engine" in mods
+    assert {"repro_torch.core.async_engine", "repro_torch.core.fleet",
+            "repro_torch.sim.behavior", "repro_torch.sim.traces",
+            "repro_torch.sim.scenarios", "repro_torch.sim.harness",
+            "repro_torch.launch.run_scenario"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

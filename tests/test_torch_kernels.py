@@ -41,6 +41,28 @@ def vote_case(seed, B, T, N, pad_t):
     return xsel, thr, pol, alphas
 
 
+def batched_scan_case(seed, B, N, F, T):
+    """A stacked fleet batch with zero-weight rows and a zero-weight slot,
+    thresholds on data values."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, N, F).astype(np.float32)
+    y = np.where(rng.rand(B, N) < 0.4, 1.0, -1.0).astype(np.float32)
+    w = rng.rand(B, N).astype(np.float32)
+    w[:, 1::3] = 0.0                                # padding rows
+    w[B // 2] = 0.0                                 # a padding slot
+    rows = rng.randint(0, N, size=(B, F, T))
+    thr = np.take_along_axis(x.transpose(0, 2, 1), rows, axis=2)
+    return x, y, w, np.ascontiguousarray(thr, np.float32)
+
+
+def f64_scan_oracle(x, y, w, thr):
+    """err[b,f,t] summed in f64 by numpy and rounded once to f32."""
+    pred = np.where(x[:, :, :, None] > thr[:, None], 1.0, -1.0)
+    miss = pred != y[:, :, None, None]
+    return np.einsum("bn,bnft->bft", w.astype(np.float64),
+                     miss.astype(np.float64)).astype(np.float32)
+
+
 def t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
@@ -62,6 +84,33 @@ def test_stump_scan_ref_matches_jax(jax_ref, N, F, T):
     got = ref.stump_scan_ref(*t(*args)).numpy()
     assert got.shape == (F, T) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("N", [1, 3, 4, 37])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_stump_scan_batched_ref_matches_jax_and_f64(jax_ref, B, N):
+    jnp, jref = jax_ref
+    import jax
+    jscan = jax.jit(jref.stump_scan_batched_ref)
+    for F in (1, 5, 48):
+        for T in (1, 16):
+            args = batched_scan_case(B * 1000 + N * 10 + F + T, B, N, F, T)
+            got = ref.stump_scan_batched_ref(*t(*args)).numpy()
+            assert got.shape == (B, F, T) and got.dtype == np.float32
+            # the JAX package sums in f32: equal up to its rounding
+            want = np.asarray(jscan(*map(jnp.asarray, args)))
+            np.testing.assert_allclose(got, want, **TOL)
+            # the exact sum rounded once, whatever the order
+            np.testing.assert_array_equal(got, f64_scan_oracle(*args))
+            assert not got[B // 2].any()             # the zero-weight slot
+
+
+def test_stump_scan_batched_ref_is_stump_scan_per_slot():
+    args = batched_scan_case(7, 5, 37, 6, 16)
+    got = ref.stump_scan_batched_ref(*t(*args))
+    for b in range(5):
+        one = ref.stump_scan_ref(*t(*(a[b] for a in args)))
+        assert torch.equal(got[b], one)
 
 
 @pytest.mark.parametrize("B,T,N,pad", [(1, 1, 1, 0), (2, 7, 5, 2),
@@ -112,8 +161,11 @@ def test_fingerprint_lanes_invariant_under_zero_alpha_padding():
 def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.reset_launches()
     sargs = t(*scan_case(1, 40, 6, 5))
+    bargs = t(*batched_scan_case(1, 3, 4, 6, 5))
     vargs = t(*vote_case(2, 2, 9, 11, 3))
     assert torch.equal(ops.stump_scan(*sargs), ref.stump_scan_ref(*sargs))
+    assert torch.equal(ops.stump_scan_batched(*bargs),
+                       ref.stump_scan_batched_ref(*bargs))
     assert torch.equal(ops.stump_vote_batched(*vargs),
                        ref.stump_vote_batched_ref(*vargs))
     for a, b in zip(ops.stump_vote_fp_batched(*vargs),
@@ -148,6 +200,22 @@ def test_stump_scan_kernel_matches_plain_on_card(card, N, F, T):
     torch.testing.assert_close(got, want, **TOL)
     # both sum in f64 and round once: equal bit for bit
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,F,T", [
+    (B, N, F, T) for B in (1, 3, 8) for N in (1, 3, 4, 37)
+    for F in (1, 5, 48) for T in (1, 16)]
+    # 70,000 slots: more than gridDim.y's 65,535; 333 rows: a large shard
+    + [(70_000, 4, 2, 16), (4096, 333, 64, 16)])
+def test_stump_scan_batched_kernel_matches_plain_on_card(card, B, N, F, T):
+    args = [a.to(card) for a in t(*batched_scan_case(B + N, B, N, F, T))]
+    before = ops.LAUNCHES["stump_scan_batched"]
+    got = ops.stump_scan_batched(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["stump_scan_batched"] == before + 1
+    # both sum over the rows in order in f64 and round once
+    assert torch.equal(got, ref.stump_scan_batched_ref(*args))
 
 
 @pytest.mark.cuda
