@@ -10,7 +10,9 @@ nonzero (there is no CPU fall-back):
 2. build: the CUDA kernels compiled from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at a large shape, with CUDA-event times, the
-   plain version's time and the card's lower bound for the same work;
+   plain version's time, the card's lower bound for the same work and,
+   for the two generic votes, the time of the one PyTorch call that
+   computes the same function;
 4. train: edge_vision at full size in both modes and iot at full size,
    enhanced, all on the card, publishing into one registry; each run is
    then repeated on the CPU in lockstep, handed the card's stump at every
@@ -29,12 +31,24 @@ nonzero (there is no CPU fall-back):
    (2) the scenario at full width through ``run_scenario``, legacy trace,
    seed 0, both modes, cut from 4 rounds to 2: baseline counters and clock
    must equal the JAX package's, enhanced ones are printed beside its;
-   (3) the same scenario at 4,096 clients on the card, then on the CPU in
-   lockstep; (4) the enhanced full-width run's wall split and the card's
-   busy share over a profiled window.
+   (3) the same scenario and cut at 4,096 clients on the card, then on
+   the CPU in lockstep; (4) the enhanced full-width run's wall split and
+   the card's busy share over a profiled window;
+8. generic learners: edge_vision at full size with the logistic and the
+   MLP learner, both modes, 25 rounds, on the card (the enhanced runs
+   publish), each repeated on the CPU in lockstep, handed the card's
+   params at every fit: every counter must agree, and the CPU's own fit
+   on the card's inputs must give the card's params within 1e-4 or be
+   ill-conditioned; then 2048 requests (25% repeats) from both tenants
+   through ``EnsembleServer`` on the generic path, then the same batches
+   through the CPU plain path; then one MLP run, cut to 5 rounds, and
+   serve under torch.profiler;
+9. the kernel API path: ``ensemble_vote`` and ``dist_update`` through
+   ``repro_torch.kernels.ops`` at ``benchmarks/kernel_bench.py``'s shapes.
 
 Launch counts are zeroed just before phase 4 and read just after phase 5,
-and zeroed again just before the fleet path (7.2) and read just after it.
+and zeroed again just before each later path (7.2, 8, 9) and read just
+after it.
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -79,11 +93,21 @@ KERNEL_INFO = {
                            "src/repro/kernels/ensemble_vote.py:203"),
     "stump_vote_fp_batched": ("src/repro_torch/kernels/csrc/stump_vote.cu",
                               "src/repro/kernels/ensemble_vote.py:168"),
+    "ensemble_vote_batched": ("src/repro_torch/kernels/csrc/ensemble_vote.cu",
+                              "src/repro/kernels/ensemble_vote.py:88"),
+    "ensemble_vote": ("src/repro_torch/kernels/csrc/ensemble_vote.cu",
+                      "src/repro/kernels/ensemble_vote.py:48"),
+    "dist_update": ("src/repro_torch/kernels/csrc/dist_update.cu",
+                    "src/repro/kernels/dist_update.py:44"),
 }
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print one line, stamped with the seconds since the script began."""
+    print(f"[{time.perf_counter() - T0:6.1f} s] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -111,12 +135,14 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, name_has: str) -> float:
-    """Mean device time (ms) of the CUDA kernels whose name contains
-    ``name_has``, over ``reps`` calls traced by torch.profiler: the kernel
-    alone, without the host time around its launch.  NaN when the trace
-    holds no such kernel."""
+def device_ms(fn, reps: int, name_has) -> float:
+    """Device time (ms) per call of the CUDA kernels whose name contains
+    ``name_has`` (a string, or a tuple of strings for a call that launches
+    several kernels), over ``reps`` calls traced by torch.profiler: the
+    kernels alone, without the host time around their launch.  NaN when
+    the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
+    names = (name_has,) if isinstance(name_has, str) else tuple(name_has)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -126,10 +152,10 @@ def device_ms(fn, reps: int, name_has: str) -> float:
     total = n = 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA and \
-                name_has in evt.name:
+                any(k in evt.name for k in names):
             total += evt.device_time_total
             n += 1
-    return total / n / 1e3 if n else float("nan")
+    return total / reps / 1e3 if n else float("nan")
 
 
 def bound_ms(nbytes: float, ops_f32: float, ops_f64: float = 0.0):
@@ -239,6 +265,117 @@ def check_kernels():
                 f"kernel_ms={r['kernel_ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                 f"({r['bound_by']})")
+    return results
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two f32
+    tensors of one sign (here: positive weights)."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def check_generic_kernels():
+    """Phase 3 for the generic learners' kernels: ``ensemble_vote_batched``
+    at the generic serving batch's shape and a large one, ``ensemble_vote``
+    and ``dist_update`` at ``benchmarks/kernel_bench.py``'s shapes and
+    large ones, each against its plain version on the card, with
+    ``library_ms`` the one PyTorch call that computes the same function
+    (``dist_update`` has none)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    results = {}
+    for label, (B, T, N, pad) in (("main", (2, 300, 64, 20)),
+                                  ("large", (8, 1024, 4096, 24))):
+        m = torch.rand((B, T, N), generator=gen, device=dev) * 2.0 - 1.0
+        m[:, ::4] = torch.sign(m[:, ::4])          # stump-like rows too
+        alf = torch.rand((B, T), generator=gen, device=dev)
+        m[:, T - pad:] = 0.0                         # the batch's T padding
+        alf[:, T - pad:] = 0.0
+        l1 = None if label == "main" else alf.abs().sum(1, keepdim=True)
+        got = ops.ensemble_vote_batched(m, alf)
+        want = ref.ensemble_vote_batched_ref(m, alf)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not close(got, want, l1):
+            raise AssertionError(f"ensemble_vote_batched {label}: max err "
+                                 f"{err}")
+        lib = lambda: torch.bmm(alf[:, None, :], m)[:, 0]   # noqa: E731
+        if not close(lib(), want, l1):
+            raise AssertionError("torch.bmm disagrees with the plain version")
+        b, by = bound_ms(4 * (B * T * N + B * T + B * N), 2.0 * B * T * N)
+        results.setdefault("ensemble_vote_batched", {})[label] = dict(
+            shape=[B, T, N], max_abs_err=err,
+            ms=cuda_ms(lambda: ops.ensemble_vote_batched(m, alf), 50),
+            kernel_ms=device_ms(lambda: ops.ensemble_vote_batched(m, alf),
+                                20, "ensemble_vote_kernel"),
+            plain_ms=cuda_ms(lambda: ref.ensemble_vote_batched_ref(m, alf),
+                             20),
+            bound_ms=b, bound_by=by, library_ms=cuda_ms(lib, 50))
+    for label, (T, N) in (("main", (256, 8192)), ("large", (1024, 65536))):
+        # kernel_bench's inputs: sign margins, normal vote weights
+        m = torch.sign(torch.randn((T, N), generator=gen, device=dev))
+        alf = torch.randn((T,), generator=gen, device=dev)
+        # signed weights: a column's sum cancels, and the rounding of its
+        # partial sums scales with sum |alpha_t| (as at the large votes)
+        l1 = alf.abs().sum()
+        got = ops.ensemble_vote(m, alf)
+        want = ref.ensemble_vote_ref(m, alf)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not close(got, want, l1):
+            raise AssertionError(f"ensemble_vote {label}: max err {err}")
+        lib = lambda: alf @ m                                # noqa: E731
+        b, by = bound_ms(4 * (T * N + T + N), 2.0 * T * N)
+        results.setdefault("ensemble_vote", {})[label] = dict(
+            shape=[T, N], max_abs_err=err,
+            ms=cuda_ms(lambda: ops.ensemble_vote(m, alf), 50),
+            kernel_ms=device_ms(lambda: ops.ensemble_vote(m, alf), 20,
+                                "ensemble_vote_kernel"),
+            plain_ms=cuda_ms(lambda: ref.ensemble_vote_ref(m, alf), 20),
+            bound_ms=b, bound_by=by, library_ms=cuda_ms(lib, 50))
+    for label, N in (("main", 8192), ("large", 4_194_304)):
+        # kernel_bench's inputs: a softmax distribution, sign labels and
+        # margins, alpha 0.7
+        D = torch.softmax(torch.randn((N,), generator=gen, device=dev), 0)
+        y = torch.sign(torch.randn((N,), generator=gen, device=dev))
+        h = torch.sign(torch.randn((N,), generator=gen, device=dev))
+        alpha = torch.tensor(0.7, device=dev)
+        got, z = ops.dist_update(alpha, D, y, h)
+        want, wz = ref.dist_update_ref(alpha, D, y, h)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        z_rel = float((z - wz).abs() / wz)
+        # w to 2 ulp: the plain version's w over the kernel's Z, against D'
+        w_ulps = ulps(got, (D * torch.exp(-alpha * y * h)) / (z + 1e-30))
+        if not (err <= 1e-6 and z_rel <= 1e-6 and w_ulps <= 2):
+            raise AssertionError(f"dist_update {label}: D' err {err}, Z rel "
+                                 f"{z_rel}, w {w_ulps} ulp")
+        # D, y, h read and D' written (16 bytes a sample); 2 multiplies,
+        # an exp, an add into Z and a divide a sample
+        b, by = bound_ms(16.0 * N + 8, 5.0 * N)
+        results.setdefault("dist_update", {})[label] = dict(
+            shape=[N], max_abs_err=err, z_rel_err=z_rel, w_ulps=w_ulps,
+            ms=cuda_ms(lambda: ops.dist_update(alpha, D, y, h), 50),
+            kernel_ms=device_ms(
+                lambda: ops.dist_update(alpha, D, y, h), 20,
+                ("dist_weights_kernel", "dist_total_kernel",
+                 "dist_normalize_kernel")),
+            plain_ms=cuda_ms(lambda: ref.dist_update_ref(alpha, D, y, h),
+                             20),
+            bound_ms=b, bound_by=by, library_ms=None)
+    for name, by_shape in results.items():
+        for label, r in by_shape.items():
+            lib = r["library_ms"]
+            log(f"kernel {name} {label} {r['shape']}: "
+                f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
+                f"kernel_ms={r['kernel_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                f"({r['bound_by']}) library_ms="
+                + ("none" if lib is None else f"{lib:.4f}")
+                + ("" if name != "dist_update" else
+                   f" z_rel_err={r['z_rel_err']:.3g} w_ulps={r['w_ulps']}"))
     return results
 
 
@@ -508,10 +645,12 @@ def serve(registry, datas):
 
 
 # ------------------------------------------------------------ phase 6
-def profile_main_path(registry, datas):
-    """One more edge_vision enhanced training run and a 512-request serve,
-    traced by torch.profiler (CUDA activity only): device time by kernel
-    name and the share of the wall time the card was busy."""
+def profile_main_path(registry, datas, weak_learner="stump",
+                      tenant="edge_vision", label="profile", rounds=25):
+    """One more edge_vision enhanced training run of ``rounds`` rounds and
+    a 512-request serve of ``tenant``, traced by torch.profiler (CUDA
+    activity only): device time by kernel name and the share of the wall
+    time the card was busy."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.paper_fedboost import FedBoostConfig
     from repro_torch.core import FederatedBoostEngine
@@ -519,7 +658,8 @@ def profile_main_path(registry, datas):
     from repro_torch.sim.scenarios import DOMAINS
 
     dom = DOMAINS["edge_vision"]
-    cfg = FedBoostConfig(n_clients=dom.n_clients, n_rounds=25, seed=0,
+    cfg = FedBoostConfig(n_clients=dom.n_clients, n_rounds=rounds, seed=0,
+                         weak_learner=weak_learner,
                          straggler_factor=dom.straggler_factor,
                          dropout_prob=dom.dropout_prob,
                          link_mbps=dom.link_mbps)
@@ -535,7 +675,7 @@ def profile_main_path(registry, datas):
         phases["train"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         for i in range(512):
-            server.submit("edge_vision", xt[i % len(xt)],
+            server.submit(tenant, xt[i % len(xt)],
                           now=time.perf_counter() - t0)
         server.drain()
         torch.cuda.synchronize()
@@ -548,13 +688,14 @@ def profile_main_path(registry, datas):
             by_name[key] = by_name.get(key, 0.0) + evt.device_time_total
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = 1e3 * sum(phases.values())
-    log(f"profile: wall_ms={wall_ms:.1f} (train {1e3 * phases['train']:.1f}, "
-        f"serve {1e3 * phases['serve']:.1f}) device_busy_ms={busy_ms:.2f} "
-        f"idle_share={1 - busy_ms / wall_ms:.4f}")
+    log(f"{label}: {weak_learner} {rounds} rounds wall_ms={wall_ms:.1f} "
+        f"(train {1e3 * phases['train']:.1f}, serve "
+        f"{1e3 * phases['serve']:.1f}) "
+        f"device_busy_ms={busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.4f}")
     if not by_name:
-        log("profile: the trace holds no device time (not measured)")
+        log(f"{label}: the trace holds no device time (not measured)")
     for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"profile:   {us / 1e3:9.3f} ms  {key}")
+        log(f"{label}:   {us / 1e3:9.3f} ms  {key}")
 
 
 # ------------------------------------------------------------ phase 7
@@ -916,7 +1057,8 @@ def wall_split(r):
 
 def fleet_lockstep():
     """Phase 7.3: mobile_100k's configuration at 4,096 clients, both modes,
-    on the card; then on the CPU handed the card's pick at every wave.
+    cut to 2 rounds as at full width, on the card; then on the CPU handed
+    the card's pick at every wave.
     Every counter and the clock must agree, and the CPU's own pick on the
     card's inputs must be the card's or tie it to within ROUNDING.  The
     CPU's own run is set beside the card's, and where the two first pick
@@ -926,7 +1068,7 @@ def fleet_lockstep():
     from repro_torch.models import weak
     sc = fleet_scenario(FLEET_LOCKSTEP_CLIENTS)
     data = sc.make_data(0)
-    cfg = sc.fedboost_config(seed=0)
+    cfg = sc.fedboost_config(seed=0, n_rounds=FLEET_ROUNDS)
     base = weak.get_weak_learner("stump")
     for mode in ("baseline", "enhanced"):
         card = []
@@ -1016,6 +1158,323 @@ def fleet_lockstep():
                f"exact gap {split[3]:.3g} on the card's inputs"))
 
 
+# ------------------------------------------------------------ phase 8
+GENERIC_ROUNDS = 25
+GENERIC_PROFILE_ROUNDS = 5      # the profiled MLP run, cut from 25
+REL = 1e-4      # a card fit against the cpu's, relative to the leaf's largest
+GENERIC_TENANTS = ("edge_vision_logistic", "edge_vision_mlp")
+
+
+def rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over a leaf, as a share of max |want|."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+class GenericFitLog:
+    """The port's own logistic or MLP learner on the card, keeping each
+    fit's inputs, the MLP's init (drawn again from a copy of the
+    generator's state) and the fitted params where they lie, and the wall
+    time of the fits and of the predicts, each closed by a synchronize so
+    that the device work lands in its own share."""
+
+    def __init__(self, name):
+        from repro_torch.models.weak import WeakLearnerSpec, get_weak_learner
+        self.name = name
+        self.base = get_weak_learner(name)
+        self.fits = []
+        self.fit_s = self.predict_s = 0.0
+        self.n_predicts = 0
+        self.spec = WeakLearnerSpec(name, self.fit, self.predict,
+                                    self.base.param_bytes)
+
+    def fit(self, x, y, w, generator):
+        from repro_torch.models.weak import init_mlp
+        init = None
+        if self.name == "mlp":
+            copy = torch.Generator(device=generator.device)
+            copy.set_state(generator.get_state())
+            init = init_mlp(x.shape[1], copy)
+        t0 = time.perf_counter()
+        p = self.base.fit(x, y, w, generator)
+        torch.cuda.synchronize()
+        self.fit_s += time.perf_counter() - t0
+        self.fits.append((x, y, w.clone(), init, p))
+        return p
+
+    def predict(self, p, x):
+        t0 = time.perf_counter()
+        out = self.base.predict(p, x)
+        torch.cuda.synchronize()
+        self.predict_s += time.perf_counter() - t0
+        self.n_predicts += 1
+        return out
+
+    def on_cpu(self):
+        shards = {}                      # one host copy per client shard
+        host_ = lambda t: shards.setdefault(t.data_ptr(), t.cpu())  # noqa
+        leaves = lambda p: None if p is None else {             # noqa
+            k: v.cpu() for k, v in p.items()}
+        return [(host_(x), host_(y), w.cpu(), leaves(init), leaves(p))
+                for x, y, w, init, p in self.fits]
+
+
+def generic_lockstep_on_cpu(cfg, data, mode, name, fits, label):
+    """The same run on the CPU, handed the card's params at every fit.
+
+    Each fit's inputs must be the card's (x and y equal, the distribution
+    within 1e-4 relative), and the CPU's own fit on the card's inputs (the
+    MLP from the card's init) must give the card's params within ``REL``,
+    or the fit must be ill-conditioned: the CPU's f32 fit lies more than
+    REL/10 from the same fit in f64, so that rounding alone moves it (when
+    the distribution sits on a few samples, 50 or 80 steps amplify the last
+    bits).  Returns the run's metrics, the largest relative difference of
+    the held fits and the ill-conditioned fits."""
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.models.weak import (WeakLearnerSpec, get_weak_learner,
+                                         train_mlp)
+    base = get_weak_learner(name)
+
+    def own_fit(x, y, w, init, dtype=torch.float32):
+        x, y, w = x.to(dtype), y.to(dtype), w.to(dtype)
+        if name == "mlp":
+            return train_mlp({k: v.to(dtype) for k, v in init.items()},
+                             x, y, w)
+        return base.fit(x, y, w, None)
+    replay = iter(enumerate(fits))
+    held, ill = [], []
+
+    def fit(x, y, w, generator):
+        i, (gx, gy, gw, ginit, gp) = next(replay)
+        if not (torch.equal(x, gx) and torch.equal(y, gy)):
+            raise AssertionError(f"{label}: fit #{i} is on another client "
+                                 f"shard than the card's")
+        if not torch.allclose(w, gw, rtol=1e-4, atol=1e-9):
+            raise AssertionError(f"{label}: distribution at fit #{i} differs "
+                                 f"by {float((w - gw).abs().max())}")
+        mine = own_fit(gx, gy, gw, ginit)
+        rel = max(rel_diff(mine[k], gp[k]) for k in gp)
+        if rel <= REL:
+            held.append(rel)
+        else:
+            exact = own_fit(gx, gy, gw, ginit, torch.float64)
+            spread = max(rel_diff(mine[k], exact[k]) for k in mine)
+            if not spread > REL / 10:
+                raise AssertionError(f"{label}: fit #{i} card vs cpu {rel}, "
+                                     f"cpu f32 vs f64 {spread}")
+            ill.append((i, rel, spread))
+        return gp
+    spec = WeakLearnerSpec(name, fit, base.predict, base.param_bytes)
+    m = FederatedBoostEngine(cfg, data, mode, weak=spec, device="cpu").run()
+    if next(replay, None) is not None:
+        raise AssertionError(f"{label}: the cpu run made fewer fits")
+    return m, max(held, default=0.0), ill
+
+
+def train_generic(registry, datas):
+    """Phase 8.2: edge_vision at full size with the logistic and the MLP
+    learner, both modes, 25 rounds each, on the card; the enhanced runs
+    publish into the registry.  Each run is then repeated on the CPU in
+    lockstep, handed the card's params at every fit; the CPU's own
+    logistic run is set beside the card's."""
+    from repro_torch.configs.paper_fedboost import FedBoostConfig
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.sim.scenarios import DOMAINS
+    dom = DOMAINS["edge_vision"]
+    data = datas["edge_vision"]
+    keys = INT_FIELDS + ("sim_time_s",)
+    one = 1.0 / len(data["test"][1]) + 1e-6
+    for name in ("logistic", "mlp"):
+        for mode in ("baseline", "enhanced"):
+            label = f"edge_vision {name} {mode}"
+            cfg = FedBoostConfig(
+                n_clients=dom.n_clients, n_rounds=GENERIC_ROUNDS, seed=0,
+                weak_learner=name, straggler_factor=dom.straggler_factor,
+                dropout_prob=dom.dropout_prob, link_mbps=dom.link_mbps)
+            log_ = GenericFitLog(name)
+            t0 = time.perf_counter()
+            eng = FederatedBoostEngine(cfg, data, mode, weak=log_.spec,
+                                       device=CARD)
+            if mode == "enhanced":
+                eng.attach_registry(registry, f"edge_vision_{name}")
+            m = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            p = log_.fits[-1][4]
+            if any(v.device.type != eng.device.type for v in p.values()):
+                raise AssertionError(f"{label}: params are not on the card")
+            for v in (m.final_val_error, m.final_test_error, m.sim_time_s):
+                if not math.isfinite(v):
+                    raise AssertionError(f"non-finite metric in {label}")
+            if not m.final_val_error < 0.35:
+                raise AssertionError(f"{label} did not learn")
+            log(f"train {label} {GENERIC_ROUNDS} rounds on {CARD}: "
+                f"bytes={m.total_bytes} msgs={m.n_messages} "
+                f"syncs={m.n_syncs} merged={m.learners_merged} "
+                f"published={m.snapshots_published} "
+                f"sim_time_s={m.sim_time_s!r} "
+                f"val_err={m.final_val_error:.4f} "
+                f"test_err={m.final_test_error:.4f} wall_s={wall:.2f} "
+                f"(fits {log_.fit_s:.2f} s for {len(log_.fits)}, predicts "
+                f"{log_.predict_s:.2f} s for {log_.n_predicts}, rest "
+                f"{wall - log_.fit_s - log_.predict_s:.2f} s)")
+            t0 = time.perf_counter()
+            m_cpu, worst, ill = generic_lockstep_on_cpu(
+                cfg, data, mode, name, log_.on_cpu(), label)
+            diff = {k: (getattr(m, k), getattr(m_cpu, k)) for k in keys
+                    if getattr(m, k) != getattr(m_cpu, k)}
+            if diff:
+                raise AssertionError(f"{label}: cuda vs cpu counters {diff}")
+            d_err = max(abs(m.final_test_error - m_cpu.final_test_error),
+                        abs(m.final_val_error - m_cpu.final_val_error))
+            log(f"train check {label}: cpu lockstep counters equal the "
+                f"card's ({time.perf_counter() - t0:.1f} s); cpu fit on the "
+                f"card's inputs within {REL} at "
+                f"{len(log_.fits) - len(ill)} of {len(log_.fits)} fits "
+                f"(largest {worst:.3g}); ill-conditioned {len(ill)}: "
+                + (", ".join(f"#{i} {r:.3g} (cpu f32 vs f64 {s:.3g})"
+                             for i, r, s in ill[:8]) or "none")
+                + ("" if len(ill) <= 8 else f" and {len(ill) - 8} more")
+                + f"; test error cuda {m.final_test_error:.4f} cpu "
+                f"{m_cpu.final_test_error:.4f}")
+            if d_err > one:
+                raise AssertionError(f"{label}: cuda vs cpu errors differ by "
+                                     f"{d_err}")
+            if name == "logistic":
+                own = FederatedBoostEngine(cfg, data, mode,
+                                           device="cpu").run()
+                odiff = {k: (getattr(m, k), getattr(own, k)) for k in keys
+                         if getattr(m, k) != getattr(own, k)}
+                log(f"train check {label}: the cpu's own run "
+                    + ("gives the card's counters" if not odiff else
+                       f"splits from the card's: card vs cpu {odiff}")
+                    + f"; test error {own.final_test_error:.4f}")
+
+
+def serve_generic(registry, datas):
+    """Phase 8.3: 2048 requests (25% repeats) from the logistic and the MLP
+    tenant's test set through ``EnsembleServer`` on the card, then the same
+    batches through the CPU plain path.  Returns the number of generic
+    batches the card's evaluator launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (BatchConfig, BatchEvaluator,
+                                   EnsembleServer, ResultCache)
+    registry.rebase_clock(0.0)
+    server = EnsembleServer(registry, BatchConfig(max_batch=64,
+                                                  cache_capacity=4096),
+                            device=CARD)
+    ev = server.evaluator
+    batches = []
+    timed = {"eval": 0.0, "vote": 0.0}
+    evaluate, eval_generic = ev.evaluate, ev._eval_generic
+    vote = ops.ensemble_vote_batched
+
+    def recording(batch):
+        out = evaluate(batch)
+        batches.append((list(batch), out))
+        return out
+
+    def timed_generic(group, margins):
+        t0 = time.perf_counter()
+        eval_generic(group, margins)
+        timed["eval"] += time.perf_counter() - t0
+
+    def timed_vote(m, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vote(m, a)
+        torch.cuda.synchronize()
+        timed["vote"] += time.perf_counter() - t0
+        return out
+    ev.evaluate, ev._eval_generic = recording, timed_generic
+    ops.ensemble_vote_batched = timed_vote
+    try:
+        xt, yt = datas["edge_vision"]["test"]
+        rng = np.random.RandomState(2)
+        sent = []
+        for i in range(2048):
+            if sent and rng.rand() < 0.25:
+                sent.append(sent[rng.randint(len(sent))])
+            else:
+                sent.append((GENERIC_TENANTS[rng.randint(2)], i % len(yt)))
+        responses = []
+        t0 = time.perf_counter()
+        for tenant, row in sent:
+            accepted, done = server.submit(tenant, xt[row],
+                                           now=time.perf_counter() - t0)
+            if not accepted:
+                raise AssertionError("request rejected")
+            responses += done
+        responses += server.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.ensemble_vote_batched = vote
+        server.close()
+    if len(responses) != len(sent):
+        raise AssertionError(f"{len(responses)} responses for {len(sent)}")
+    correct = 0
+    for r in responses:
+        if r.snapshot_version == 0 or not math.isfinite(r.margin):
+            raise AssertionError(f"bad response {r}")
+        correct += r.label == yt[sent[r.rid][1]]
+    rep = server.metrics.report()
+    log(f"serve generic: {len(responses)} requests in {rep['n_batches']} "
+        f"batches, accuracy={correct / len(responses):.4f} "
+        f"p50_ms={rep['p50_ms']:.3f} p99_ms={rep['p99_ms']:.3f} "
+        f"wall_s={wall:.3f} generic_launches={ev.kernel_launches} "
+        f"host_hashes={ev.host_hash_calls} "
+        f"cache_hits={server.cache.stats.hits}; generic evaluation "
+        f"{timed['eval']:.3f} s of it, the vote kernel (synchronized) "
+        f"{timed['vote']:.4f} s, the predicts and packing the rest")
+    cpu = BatchEvaluator(registry, cache=ResultCache(4096), device="cpu")
+    mismatch = far = 0
+    worst = 0.0
+    for batch, out in batches:
+        for g, c in zip(out, cpu.evaluate(batch)):
+            worst = max(worst, abs(g.margin - c.margin))
+            far += abs(g.margin - c.margin) > TOL + TOL * abs(c.margin)
+            mismatch += abs(c.margin) > 1e-5 and g.label != c.label
+    log(f"serve generic check: cpu plain path on the same {len(batches)} "
+        f"batches: label mismatches={int(mismatch)} max |margin diff|="
+        f"{worst:.3g} cpu launches={cpu.kernel_launches}")
+    if mismatch or far:
+        raise AssertionError(f"generic serve: {int(mismatch)} labels and "
+                             f"{far} margins differ from the cpu (max "
+                             f"{worst})")
+    if cpu.kernel_launches != ev.kernel_launches or ev.kernel_launches < 1:
+        raise AssertionError(f"generic batches cuda {ev.kernel_launches} "
+                             f"cpu {cpu.kernel_launches}")
+    return ev.kernel_launches
+
+
+# ------------------------------------------------------------ phase 9
+def kernel_api_path():
+    """Phase 9: ``ensemble_vote`` and ``dist_update``, which the system
+    itself never calls, through ``repro_torch.kernels.ops`` as
+    ``benchmarks/kernel_bench.py`` calls the JAX package's, each held to
+    its plain version on the card."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=CARD).manual_seed(4)
+    N = 8192
+    D = torch.softmax(torch.randn((N,), generator=gen, device=CARD), 0)
+    y = torch.sign(torch.randn((N,), generator=gen, device=CARD))
+    h = torch.sign(torch.randn((N,), generator=gen, device=CARD))
+    got, z = ops.dist_update(0.7, D, y, h)
+    want, wz = ref.dist_update_ref(0.7, D, y, h)
+    m = torch.sign(torch.randn((256, N), generator=gen, device=CARD))
+    a = torch.randn((256,), generator=gen, device=CARD)
+    hm = ops.ensemble_vote(m, a)
+    torch.cuda.synchronize()
+    if not (float((got - want).abs().max()) <= 1e-6
+            and float((z - wz).abs() / wz) <= 1e-6
+            and close(hm, ref.ensemble_vote_ref(m, a), a.abs().sum())):
+        raise AssertionError("kernel API path: a kernel disagrees with its "
+                             "plain version")
+    log(f"kernel API path: dist_update N={N} Z={float(z)!r} and "
+        f"ensemble_vote {tuple(m.shape)} match their plain versions")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1039,6 +1498,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     kernel_results = check_kernels()
+    kernel_results.update(check_generic_kernels())
     kernel_results["stump_scan_batched"] = check_scan_batched()
 
     obs.set_registry(obs.MetricsRegistry())
@@ -1069,6 +1529,34 @@ def main() -> int:
     launches["stump_scan_batched"] = fleet_launches["stump_scan_batched"]
     fleet_lockstep()
 
+    # the generic-learner path: counts zeroed just before it, read just after
+    ops.reset_launches()
+    train_generic(registry, datas)
+    generic_batches = serve_generic(registry, datas)
+    torch.cuda.synchronize()
+    generic_launches = dict(ops.LAUNCHES)
+    log(f"launches on the generic path: {generic_launches}; "
+        f"generic batches={generic_batches}")
+    if generic_launches["ensemble_vote_batched"] != generic_batches:
+        raise AssertionError(f"ensemble_vote_batched launches "
+                             f"{generic_launches['ensemble_vote_batched']} "
+                             f"!= generic batches {generic_batches}")
+    launches["ensemble_vote_batched"] = generic_batches
+    profile_main_path(registry, datas, "mlp", "edge_vision_mlp",
+                      "profile generic", rounds=GENERIC_PROFILE_ROUNDS)
+
+    # the kernel API path: counts zeroed just before it, read just after
+    ops.reset_launches()
+    kernel_api_path()
+    torch.cuda.synchronize()
+    api_launches = dict(ops.LAUNCHES)
+    log(f"launches on the kernel API path: {api_launches}")
+    for name in ("ensemble_vote", "dist_update"):
+        if api_launches[name] != 1:
+            raise AssertionError(f"kernel {name} launched "
+                                 f"{api_launches[name]} times, not once")
+        launches[name] = api_launches[name]
+
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         main_r = kernel_results[name]["main"]
@@ -1077,7 +1565,7 @@ def main() -> int:
             launches=launches[name], max_abs_err=main_r["max_abs_err"],
             ms=main_r["ms"], plain_ms=main_r["plain_ms"],
             bound_ms=main_r["bound_ms"], bound_by=main_r["bound_by"],
-            library_ms=None, kernel_ms=main_r["kernel_ms"],
+            library_ms=main_r["library_ms"], kernel_ms=main_r["kernel_ms"],
             shape=main_r["shape"],
             large=kernel_results[name]["large"]))
     print(json.dumps({"kernels": kernels}), flush=True)

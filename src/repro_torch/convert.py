@@ -7,7 +7,7 @@ package's equivalents.  Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +44,37 @@ def snapshot_from_numpy(stump_params, alphas, tenant: str, version: int,
         tenant=tenant, version=int(version), published_at=float(published_at),
         train_progress=int(train_progress), weak_name="stump", alphas=al,
         stump_params=sp)
+
+
+def params_from_numpy(learners: Sequence[Mapping], device="cpu"
+                      ) -> List[Dict]:
+    """Generic (logistic / mlp) param dicts of tensors on ``device`` from
+    dicts of arrays, each leaf with its own dtype and shape (0-d biases
+    stay 0-d)."""
+    dev = resolve_device(device)
+    return [{k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+             for k, v in p.items()} for p in learners]
+
+
+def generic_snapshot_from_numpy(learners: Sequence[Mapping], alphas,
+                                weak_name: str, tenant: str, version: int,
+                                train_progress: int,
+                                published_at: float = 0.0
+                                ) -> EnsembleSnapshot:
+    """A generic (logistic / mlp) :class:`EnsembleSnapshot` from its
+    learners' param dicts of arrays and its (T,) f32 vote weights, with the
+    same content fingerprint as the snapshot they came from."""
+    al = torch.from_numpy(np.array(alphas, np.float32, copy=True))
+    if len(learners) != al.shape[0]:
+        raise ValueError(f"{len(learners)} learners vs alphas "
+                         f"{tuple(al.shape)}")
+    if weak_name == "stump":
+        raise ValueError("stump snapshots carry packed params: use "
+                         "snapshot_from_numpy")
+    return EnsembleSnapshot(
+        tenant=tenant, version=int(version), published_at=float(published_at),
+        train_progress=int(train_progress), weak_name=weak_name, alphas=al,
+        learners=tuple(params_from_numpy(learners)))
 
 
 def domain_data_from_numpy(clients: Sequence, val, test) -> Dict:

@@ -65,9 +65,11 @@ Device
 Every client's ``x``, ``y`` and distribution ``D``, and the running
 validation/test margins, live on the engine's ``device`` (the card by
 default; asking for it without one raises).  Each weak-learner fit runs
-the ``stump_scan`` kernel there.  Under the fleet profile the clients keep
-their numpy shards and ``D=None``: the fleet stacks them on the device
-itself, one copy per array.  Contribution audits are not ported yet.
+there: a stump fit launches the ``stump_scan`` kernel, a logistic or MLP
+fit takes its gradient steps with autograd.  Under the fleet profile the
+clients keep their numpy shards and ``D=None``: the fleet stacks them on
+the device itself, one copy per array.  Contribution audits are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -199,6 +201,11 @@ class FederatedBoostEngine:
         self.metrics = RunMetrics(mode=mode)
         self._val_margin = None       # running sum alpha~*h over val set
         self._test_margin = None
+        # the weak learners' random draws (the MLP's init; stump and
+        # logistic fits draw nothing), seeded as the JAX package seeds its
+        # key: one stream on the engine's device
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
         # serving hook (attach_registry): snapshot publication mid-training
         self._registry = None
         self._tenant: Optional[str] = None
@@ -298,7 +305,7 @@ class FederatedBoostEngine:
     def _train_one(self, c: _Client) -> BufferEntry:
         with obs.span("train.fit", sim_t=c.clock, cid=c.cid,
                       round=c.local_round):
-            params = self.weak.fit(c.x, c.y, c.D, None)
+            params = self.weak.fit(c.x, c.y, c.D, self._generator)
         obs.count("train.fits")
         h = self.weak.predict(params, c.x)
         eps = float(weighted_error(c.D, c.y, h))

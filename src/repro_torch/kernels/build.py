@@ -27,13 +27,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signature of every exported launcher: (pointers..., ints..., stream)
+# C argument types of every exported function; a launcher takes
+# (pointers..., ints..., stream)
 SIGNATURES = {
     "stump_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "stump_vote_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "stump_vote_fp_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ensemble_vote_batched_launch": [_P, _P, _P, _L, _I, _I, _P],
+    "ensemble_vote_launch": [_P, _P, _P, _I, _I, _P],
+    "dist_update_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
+    "dist_update_partials": [_L],
 }
+# launchers return their CUDA error as an int; these functions return others
+RESTYPES = {"dist_update_partials": _L}
 
 _LIB: Optional[ctypes.CDLL] = None
 ptxas_log = ""            # register/spill report of this process's build
@@ -103,6 +110,6 @@ def load() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _LIB = lib
     return _LIB

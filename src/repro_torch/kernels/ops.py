@@ -23,7 +23,9 @@ from repro_torch.kernels import ref
 F32 = torch.float32
 LAUNCHES: Dict[str, int] = {"stump_scan": 0, "stump_scan_batched": 0,
                             "stump_vote_batched": 0,
-                            "stump_vote_fp_batched": 0}
+                            "stump_vote_fp_batched": 0,
+                            "ensemble_vote_batched": 0, "ensemble_vote": 0,
+                            "dist_update": 0}
 
 
 def reset_launches() -> None:
@@ -174,3 +176,76 @@ def stump_vote_fp_batched(xsel: torch.Tensor, thr: torch.Tensor,
                 alphas.data_ptr(), out.data_ptr(), f0.data_ptr(),
                 f1.data_ptr(), B, T, N, _stream(xsel))
     return out, f0, f1
+
+
+def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor
+                          ) -> torch.Tensor:
+    """Per-tenant weighted ensemble margins for packed serving batches:
+    margins (B,T,N), alphas (B,T) -> (B,N) f32, sum_t alphas * margins
+    (see :func:`ref.ensemble_vote_batched_ref`).  Zero-alpha padding rows
+    over zero margins contribute nothing; no padding is needed."""
+    if _on_cpu(margins, alphas):
+        return ref.ensemble_vote_batched_ref(margins, alphas)
+    B, T, N = margins.shape
+    if alphas.shape != (B, T):
+        raise ValueError(f"alphas must be {(B, T)}, got {tuple(alphas.shape)}")
+    m, a = _f32("margins", margins), _f32("alphas", alphas)
+    out = torch.empty((B, N), dtype=F32, device=m.device)
+    if B * N == 0:
+        return out
+    from repro_torch.kernels.build import load
+    with torch.cuda.device(m.device):
+        _launch("ensemble_vote_batched", load().ensemble_vote_batched_launch,
+                m.data_ptr(), a.data_ptr(), out.data_ptr(), B, T, N,
+                _stream(m))
+    return out
+
+
+def ensemble_vote(margins: torch.Tensor, alphas: torch.Tensor
+                  ) -> torch.Tensor:
+    """Weighted ensemble margin H = sum_t alphas_t margins_t: margins (T,N),
+    alphas (T,) -> (N,) f32 (see :func:`ref.ensemble_vote_ref`)."""
+    if _on_cpu(margins, alphas):
+        return ref.ensemble_vote_ref(margins, alphas)
+    T, N = margins.shape
+    if alphas.shape != (T,):
+        raise ValueError(f"alphas must be {(T,)}, got {tuple(alphas.shape)}")
+    m, a = _f32("margins", margins), _f32("alphas", alphas)
+    out = torch.empty((N,), dtype=F32, device=m.device)
+    if N == 0:
+        return out
+    from repro_torch.kernels.build import load
+    with torch.cuda.device(m.device):
+        _launch("ensemble_vote", load().ensemble_vote_launch,
+                m.data_ptr(), a.data_ptr(), out.data_ptr(), T, N, _stream(m))
+    return out
+
+
+def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
+    """Fused AdaBoost distribution update (paper eq. 4) -> ``(D', Z)``:
+    w = D * exp(-alpha * y * h), Z = sum(w) as a 0-d f32 tensor,
+    D' = w / (Z + 1e-30) (see :func:`ref.dist_update_ref`).  ``alpha`` is a
+    number or a 0-d tensor; D, y and h are (N,)."""
+    a = torch.as_tensor(alpha, dtype=F32, device=D.device)
+    if _on_cpu(a, D, y, h):
+        return ref.dist_update_ref(a, D, y, h)
+    N = D.shape[0]
+    if D.dim() != 1 or y.shape != (N,) or h.shape != (N,) or a.numel() != 1:
+        raise ValueError(f"dist_update shapes alpha{tuple(a.shape)} "
+                         f"D{tuple(D.shape)} y{tuple(y.shape)} "
+                         f"h{tuple(h.shape)}")
+    D, y, h = _f32("D", D), _f32("y", y), _f32("h", h)
+    dev = D.device
+    out = torch.empty((N,), dtype=F32, device=dev)
+    Z = torch.zeros((), dtype=F32, device=dev)
+    if N == 0:
+        return out, Z
+    from repro_torch.kernels.build import load
+    lib = load()
+    partials = torch.empty((lib.dist_update_partials(N),),
+                           dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        _launch("dist_update", lib.dist_update_launch, a.data_ptr(),
+                D.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(),
+                Z.data_ptr(), partials.data_ptr(), N, _stream(D))
+    return out, Z

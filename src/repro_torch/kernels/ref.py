@@ -61,6 +61,27 @@ def stump_scan_batched_ref(x: torch.Tensor, y: torch.Tensor,
     return err.to(F32)
 
 
+def ensemble_vote_ref(margins: torch.Tensor, alphas: torch.Tensor
+                      ) -> torch.Tensor:
+    """Weighted ensemble margin: H(x) = sum_t alpha_t h_t(x).
+
+    margins: (T, N) per-learner predictions in [-1, 1]; alphas: (T,)
+    (already staleness-compensated) -> (N,) f32 ensemble margin.
+    """
+    return torch.einsum("t,tn->n", alphas.to(F32), margins.to(F32))
+
+
+def ensemble_vote_batched_ref(margins: torch.Tensor, alphas: torch.Tensor
+                              ) -> torch.Tensor:
+    """Per-tenant weighted ensemble margins (serving generic path).
+
+    margins: (B, T, N) per-learner predictions for B packed tenants;
+    alphas: (B, T) -> (B, N) f32 ensemble margins.  Zero-alpha padding rows
+    over zero padding margins contribute exactly 0.
+    """
+    return torch.einsum("bt,btn->bn", alphas.to(F32), margins.to(F32))
+
+
 def stump_vote_batched_ref(xsel: torch.Tensor, thr: torch.Tensor,
                            pol: torch.Tensor, alphas: torch.Tensor
                            ) -> torch.Tensor:
@@ -129,3 +150,17 @@ def stump_vote_fp_batched_ref(xsel: torch.Tensor, thr: torch.Tensor,
     margins = stump_vote_batched_ref(xsel, thr, pol, alphas)
     f0, f1 = _fp_lanes(xsel, alphas)
     return margins, f0, f1
+
+
+def dist_update_ref(alpha, D: torch.Tensor, y: torch.Tensor,
+                    h: torch.Tensor):
+    """AdaBoost distribution update (paper eq. 4): returns ``(D', Z)``.
+
+    w_i = D_i exp((-alpha y_i) h_i) in f32, in the JAX package's order;
+    Z = sum_i w_i (f32); D' = w / (Z + 1e-30).  ``alpha`` is a number or a
+    0-d tensor; Z comes back as a 0-d f32 tensor.
+    """
+    a = torch.as_tensor(alpha, dtype=F32, device=D.device)
+    w = D.to(F32) * torch.exp(-a * y.to(F32) * h.to(F32))
+    Z = torch.sum(w)
+    return w / (Z + 1e-30), Z

@@ -1,20 +1,32 @@
-"""Weak learners for (federated) AdaBoost: the decision-stump family.
+"""Weak learners for (federated) AdaBoost.
 
-A stump is trained against a *weighted* sample distribution D_t(i), as the
-paper's boosting loop requires, by exhaustive search over (feature,
-threshold, polarity) for the least weighted error.  The search's hot spot
-is the ``stump_scan`` kernel (:mod:`repro_torch.kernels.ops`), which the
-card always takes and the CPU replaces with its plain version; the fleet
-profile fits a whole wave of client shards at once through
-``stump_scan_batched``.
+Three families, all trained against a *weighted* sample distribution
+D_t(i), as the paper's boosting loop requires:
 
-A weak learner is a params dict of 0-d tensors on the caller's device plus
-the spec's predict function; the params' byte size is what crosses the
+* ``stump``    decision stumps: exhaustive search over (feature, threshold,
+               polarity) for the least weighted error.  The search's hot
+               spot is the ``stump_scan`` kernel
+               (:mod:`repro_torch.kernels.ops`), which the card always takes
+               and the CPU replaces with its plain version; the fleet
+               profile fits a whole wave of client shards at once through
+               ``stump_scan_batched``.
+* ``logistic`` weighted logistic regression, 50 full-batch gradient steps.
+* ``mlp``      one-hidden-layer tanh MLP, 80 full-batch gradient steps from
+               a normal init drawn from the caller's ``torch.Generator``.
+
+The two gradient learners take their gradients from ``torch.autograd`` in
+f32 on the device of their inputs, as the JAX package takes them from
+``jax.grad``; the two libraries round the chain rule differently, so their
+fitted params agree to a relative tolerance, not bit for bit.
+
+A weak learner is a params dict of tensors on the caller's device plus the
+spec's predict function; the params' byte size is what crosses the
 network at a synchronization event, so it is what the communication
-accounting measures.  The logistic and MLP families are not ported yet.
+accounting measures.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -179,6 +191,104 @@ def stump_thresholds_batched(x: torch.Tensor, n_valid: torch.Tensor,
 STUMP_BYTES = 3 * 4   # feature idx + threshold + polarity
 
 
+# ---------------------------------------------------------------------------
+# gradient learners
+# ---------------------------------------------------------------------------
+
+def gradient_steps(loss_fn, params: Dict[str, torch.Tensor], steps: int,
+             lr: float) -> Dict[str, torch.Tensor]:
+    """``steps`` full-batch gradient steps ``p - lr * grad`` on every leaf
+    of ``params``, the gradient of ``loss_fn(params)`` from autograd."""
+    names = list(params)
+    leaves = [params[k].detach() for k in names]
+    with torch.enable_grad():
+        for _ in range(steps):
+            leaves = [v.requires_grad_() for v in leaves]
+            loss = loss_fn(dict(zip(names, leaves)))
+            grads = torch.autograd.grad(loss, leaves)
+            leaves = [(v - lr * g).detach() for v, g in zip(leaves, grads)]
+    return dict(zip(names, leaves))
+
+
+def fit_logistic(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                 generator=None, steps: int = 50, lr: float = 0.5
+                 ) -> Dict[str, torch.Tensor]:
+    """Weighted logistic regression from zero weights: ``steps`` gradient
+    steps on -sum_i w_i log-likelihood_i.  x: (N,F); y: (N,) in {-1,+1};
+    w: (N,) -> {"w": (F,), "b": ()}, in the dtype of ``x`` (f32 in the
+    engine; a check may run it in f64).  The generator is not used (the
+    start is zeros)."""
+    y, w = y.to(x.dtype), w.to(x.dtype)
+    y01 = (y + 1.0) / 2.0
+
+    def loss(p):
+        prob = torch.sigmoid(x @ p["w"] + p["b"])
+        ll = (y01 * torch.log(prob + 1e-9)
+              + (1 - y01) * torch.log(1 - prob + 1e-9))
+        return -torch.sum(w * ll)
+    params = {"w": torch.zeros(x.shape[1], dtype=x.dtype, device=x.device),
+              "b": torch.zeros((), dtype=x.dtype, device=x.device)}
+    return gradient_steps(loss, params, steps, lr)
+
+
+def predict_logistic(p: Dict[str, torch.Tensor], x: torch.Tensor
+                     ) -> torch.Tensor:
+    """-> (N,) margins in (-1, 1)."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def init_mlp(n_features: int, generator: torch.Generator, hidden: int = 16
+             ) -> Dict[str, torch.Tensor]:
+    """The MLP's start on the generator's device: normal weights scaled by
+    1/sqrt(fan-in), zero biases.  ``torch.Generator`` does not give
+    ``jax.random``'s bits, so a parity test hands :func:`train_mlp` the JAX
+    package's start instead."""
+    dev = generator.device
+    return {
+        "w1": torch.randn((n_features, hidden), generator=generator,
+                          device=dev) / math.sqrt(n_features),
+        "b1": torch.zeros((hidden,), dtype=F32, device=dev),
+        "w2": torch.randn((hidden,), generator=generator,
+                          device=dev) / math.sqrt(hidden),
+        "b2": torch.zeros((), dtype=F32, device=dev),
+    }
+
+
+def train_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              y: torch.Tensor, w: torch.Tensor, steps: int = 80,
+              lr: float = 0.1) -> Dict[str, torch.Tensor]:
+    """``steps`` gradient steps on sum_i w_i (mlp(x_i) - y_i)^2 from
+    ``params`` (as :func:`init_mlp` gives them) -> the fitted params, in
+    the dtype of ``x`` and ``params`` (f32 in the engine)."""
+    y, w = y.to(x.dtype), w.to(x.dtype)
+
+    def loss(p):
+        return torch.sum(w * torch.square(predict_mlp(p, x) - y))
+    return gradient_steps(loss, params, steps, lr)
+
+
+def fit_mlp(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+            generator: torch.Generator, steps: int = 80, hidden: int = 16,
+            lr: float = 0.1) -> Dict[str, torch.Tensor]:
+    """One-hidden-layer tanh MLP: :func:`init_mlp` from ``generator`` (on
+    the device of ``x``), then :func:`train_mlp`.  x: (N,F) ->
+    {"w1": (F,H), "b1": (H,), "w2": (H,), "b2": ()} f32."""
+    return train_mlp(init_mlp(x.shape[1], generator, hidden), x, y, w,
+                     steps, lr)
+
+
+def predict_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor
+                ) -> torch.Tensor:
+    """-> (N,) margins in (-1, 1)."""
+    h = torch.tanh(x @ p["w1"] + p["b1"])
+    return torch.tanh(h @ p["w2"] + p["b2"])
+
+
+def _pytree_bytes(p: Dict[str, torch.Tensor]) -> int:
+    """Bytes of every leaf of a params dict, as they cross the network."""
+    return int(sum(v.numel() * v.element_size() for v in p.values()))
+
+
 @dataclass(frozen=True)
 class WeakLearnerSpec:
     name: str
@@ -191,14 +301,17 @@ class WeakLearnerSpec:
 
 
 def get_weak_learner(name: str, n_thresholds: int = 16) -> WeakLearnerSpec:
-    """The weak-learner family ``name``.  The stump fit ignores its random
-    generator argument (the search is exhaustive)."""
+    """The weak-learner family ``name``.  Only the MLP's fit draws from its
+    random generator argument; the stump search is exhaustive and the
+    logistic fit starts from zeros."""
     if name == "stump":
         def fit(x, y, w, generator=None):
             return fit_stump(x, y, w, stump_thresholds(x, n_thresholds))
         return WeakLearnerSpec("stump", fit, predict_stump,
                                lambda p: STUMP_BYTES, fit_stump_batched)
-    if name in ("logistic", "mlp"):
-        raise NotImplementedError(
-            f"weak learner {name!r} is not ported yet; only 'stump' is")
+    if name == "logistic":
+        return WeakLearnerSpec("logistic", fit_logistic, predict_logistic,
+                               _pytree_bytes)
+    if name == "mlp":
+        return WeakLearnerSpec("mlp", fit_mlp, predict_mlp, _pytree_bytes)
     raise KeyError(name)

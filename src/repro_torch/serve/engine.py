@@ -6,20 +6,24 @@ requests become the N sample columns, its ensemble the T learner rows, both
 padded to the widest tenant (zero-alpha rows / dummy columns contribute
 nothing).
 
-Two paths, both for stump ensembles (the paper's weak learner):
+Three paths:
 
-* one host-side feature gather builds ``xsel[b,t,n] = x_b[n, feat_{b,t}]``
-  and the fused ``stump_vote_batched`` kernel computes margins + vote in
-  one pass;
+* stump ensembles (the paper's weak learner): one host-side feature
+  gather builds ``xsel[b,t,n] = x_b[n, feat_{b,t}]`` and the fused
+  ``stump_vote_batched`` kernel computes margins + vote in one pass;
 * under a ``fused_fingerprint`` kernel policy with a result cache
   attached, the one-launch ``stump_vote_fp_batched`` kernel additionally
   emits a per-request xor-fold feature fingerprint, which keys the result
   cache directly — no host-side ``feature_hash`` walk of any feature
-  vector on the submit path.
+  vector on the submit path;
+* generic weak learners (logistic / mlp): each learner's predict builds
+  its row of the (B, T, N) margin stack on the evaluator's device, and
+  the ``ensemble_vote_batched`` kernel takes the weighted vote in one
+  launch per group.  A tenant's learners cross to the device once per
+  snapshot version, stacked one tensor per parameter.
 
-The block is built on the host and crosses to the evaluator's device in
-one copy per launch.  Generic weak learners (logistic / mlp, the
-``ensemble_vote_batched`` path) are not ported yet.
+The stump block is built on the host and crosses to the evaluator's
+device in one copy per launch.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import KernelPolicy
+from repro_torch.models.weak import get_weak_learner
 from repro_torch.serve.batching import Request
 from repro_torch.serve.cache import ResultCache, feature_hash, fingerprint_key
 from repro_torch.serve.registry import EnsembleRegistry, EnsembleSnapshot
@@ -90,6 +95,8 @@ class BatchEvaluator:
         self.kernel_launches = 0
         self.host_hash_calls = 0
         self._fp_hits = 0
+        # tenant -> (snapshot, its learners on the device), generic path
+        self._device_learners: Dict[str, Tuple[EnsembleSnapshot, list]] = {}
 
     def evaluate(self, batch: Sequence[Request]) -> List[Response]:
         by_tenant: Dict[str, List[Request]] = {}
@@ -100,6 +107,7 @@ class BatchEvaluator:
         versions: Dict[str, int] = {}           # tenant -> snapshot served
         stump_group: List[Tuple[EnsembleSnapshot, List[Request]]] = []
         fused_group: List[Tuple[EnsembleSnapshot, List[Request]]] = []
+        generic_group: List[Tuple[EnsembleSnapshot, List[Request]]] = []
         fills: List[Tuple[str, int, bytes, int]] = []  # cache misses to fill
         dupes: List[Tuple[int, int]] = []       # (dup rid, evaluated rid)
         n_cached = n_abstained = n_deduped = 0
@@ -113,13 +121,9 @@ class BatchEvaluator:
                     margins[r.rid] = 0.0
                 continue
             versions[tenant] = snap.version
-            if snap.weak_name != "stump":
-                raise NotImplementedError(
-                    f"serving {snap.weak_name!r} ensembles (the "
-                    "ensemble_vote_batched path) is not ported yet")
             policy = self._resolved_policy(tenant)
-            if (self.cache is not None and policy is not None
-                    and policy.fused_fingerprint):
+            if (self.cache is not None and snap.weak_name == "stump"
+                    and policy is not None and policy.fused_fingerprint):
                 # the kernel computes the cache key in-launch: skip the
                 # host-side hash walk entirely and pack every request
                 fused_group.append((snap, reqs))
@@ -143,12 +147,15 @@ class BatchEvaluator:
                         pending.append(r)
                 reqs = pending
             if reqs:
-                stump_group.append((snap, reqs))
+                (stump_group if snap.weak_name == "stump"
+                 else generic_group).append((snap, reqs))
 
         for sub in self._by_policy(fused_group):
             self._eval_stumps_fused(sub, margins)
         for sub in self._by_policy(stump_group):
             self._eval_stumps(sub, margins)
+        for sub in self._by_policy(generic_group):
+            self._eval_generic(sub, margins)
         for rid, src_rid in dupes:              # fan the one margin out
             margins[rid] = margins[src_rid]
         if self.cache is not None:              # fill after the vote
@@ -249,3 +256,41 @@ class BatchEvaluator:
                 else:
                     margins[r.rid] = float(out[b, n])
                     self.cache.put(tenant, version, key, margins[r.rid])
+
+    # --------------------------------------------------------- generic path
+    def _learners_on_device(self, snap: EnsembleSnapshot) -> list:
+        """The snapshot's learners on the evaluator's device: one copy per
+        parameter name (the learners stacked), kept until the tenant's next
+        version, and per-learner views into the stacks."""
+        held = self._device_learners.get(snap.tenant)
+        if held is not None and held[0] is snap:
+            return held[1]
+        stacks = {k: torch.stack([p[k] for p in snap.learners]).to(
+            self.device) for k in snap.learners[0]}
+        learners = [{k: v[t] for k, v in stacks.items()}
+                    for t in range(snap.n_learners)]
+        self._device_learners[snap.tenant] = (snap, learners)
+        return learners
+
+    def _eval_generic(self, group, margins: Dict[int, float]) -> None:
+        """Per-learner predicts build the (B, T, N) margin stack on the
+        device (zero rows and columns pad it), then one
+        ``ensemble_vote_batched`` launch takes every tenant's vote."""
+        B = len(group)
+        T = max(s.n_learners for s, _ in group)
+        N = max(len(reqs) for _, reqs in group)
+        m = torch.zeros((B, T, N), dtype=torch.float32, device=self.device)
+        alf = np.zeros((B, T), np.float32)
+        for b, (snap, reqs) in enumerate(group):
+            predict = get_weak_learner(snap.weak_name).predict
+            x = torch.from_numpy(np.stack(
+                [np.asarray(r.x, np.float32) for r in reqs])).to(self.device)
+            m[b, :snap.n_learners, :len(reqs)] = torch.stack(
+                [predict(p, x) for p in self._learners_on_device(snap)])
+            alf[b, :snap.n_learners] = snap.alphas.numpy()
+        self.kernel_launches += 1
+        out = kops.ensemble_vote_batched(
+            m, torch.from_numpy(alf).to(self.device)).cpu().numpy()
+        for b, (_, reqs) in enumerate(group):
+            for n, r in enumerate(reqs):
+                margins[r.rid] = float(out[b, n])

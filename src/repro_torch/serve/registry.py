@@ -10,9 +10,10 @@ half-merged ensemble, and training never blocks on serving traffic.
 Stump ensembles — the paper's weak learner — are stored packed as a
 ``(T, 4)`` float array (feature, threshold, polarity, spare) on the host,
 which the serving batch gathers features from before one copy to the
-card.  Snapshot tensors live on the CPU: a snapshot is a small immutable
-record that serving reads on the host.  Publishing generic weak learners
-(logistic / mlp) is not ported yet.
+card.  Generic weak learners (logistic / mlp) keep their params dicts and
+go through the per-learner-predict + ``ensemble_vote_batched`` path
+instead.  Snapshot tensors live on the CPU: a snapshot is a small
+immutable record that serving reads on the host.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import functools
 import hashlib
 import threading
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ class EnsembleSnapshot:
     weak_name: str             # weak-learner family ("stump" | "logistic" | ...)
     alphas: torch.Tensor       # (T,) f32 compensated vote weights (CPU)
     stump_params: Optional[torch.Tensor] = None  # (T, 4) packed stumps (CPU)
+    learners: Tuple = ()       # generic params dicts (CPU), non-stump families
 
     @property
     def n_learners(self) -> int:
@@ -59,6 +61,10 @@ class EnsembleSnapshot:
         h.update(_f32_bytes(self.alphas))
         if self.stump_params is not None:
             h.update(_f32_bytes(self.stump_params))
+        for p in self.learners:
+            # the JAX package walks each dict's leaves in sorted key order
+            for k in sorted(p):
+                h.update(np.ascontiguousarray(p[k].numpy()).tobytes())
         return h.hexdigest()
 
 
@@ -76,6 +82,11 @@ def pack_stumps(learners: Sequence[Dict]) -> torch.Tensor:
     packed = torch.stack(cols, dim=1).cpu()                      # (T, 3)
     return torch.cat([packed, torch.zeros((packed.shape[0], 1), dtype=F32)],
                      dim=1)
+
+
+def _host_params(p: Dict) -> Dict[str, torch.Tensor]:
+    """A learner's params dict as detached tensors on the CPU."""
+    return {k: torch.as_tensor(v).detach().cpu() for k, v in p.items()}
 
 
 class EnsembleRegistry:
@@ -133,12 +144,14 @@ class EnsembleRegistry:
             raise ValueError(
                 f"publish({tenant!r}): {len(learners)} learners vs "
                 f"{alphas.shape[0]} alphas — refusing a mismatched snapshot")
-        if weak_name != "stump":
-            raise NotImplementedError(
-                f"publishing {weak_name!r} ensembles is not ported yet")
-        return self.publish_packed(
-            tenant, pack_stumps(learners), alphas, clock=clock,
-            train_progress=train_progress)
+        if weak_name == "stump":
+            return self.publish_packed(
+                tenant, pack_stumps(learners), alphas, clock=clock,
+                train_progress=train_progress)
+        return self._stamp(tenant, EnsembleSnapshot(
+            tenant=tenant, version=0, published_at=float(clock),
+            train_progress=int(train_progress), weak_name=weak_name,
+            alphas=alphas, learners=tuple(_host_params(p) for p in learners)))
 
     def publish_packed(self, tenant: str, stump_params: torch.Tensor,
                        alphas: torch.Tensor, *, clock: float = 0.0,

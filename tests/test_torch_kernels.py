@@ -230,3 +230,61 @@ def test_vote_kernels_match_plain_on_card(card, B, T, N, pad):
     wm, w0, w1 = ref.stump_vote_fp_batched_ref(*args)
     torch.testing.assert_close(gm, wm, **TOL)
     assert torch.equal(g0, w0) and torch.equal(g1, w1)
+
+
+def generic_vote_case(seed, B, T, N, pad_t):
+    rng = np.random.RandomState(seed)
+    m = rng.uniform(-1, 1, (B, T, N)).astype(np.float32)
+    m[:, ::4] = np.sign(m[:, ::4])                  # stump-like rows too
+    alphas = rng.rand(B, T).astype(np.float32)
+    if pad_t:
+        m[:, -pad_t:] = 0.0                         # the batch's T padding
+        alphas[:, -pad_t:] = 0.0
+    return m, alphas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N,pad", [(1, 1, 1, 0), (2, 300, 64, 20),
+                                       (3, 37, 1000, 5), (70_000, 3, 1, 1)])
+def test_ensemble_vote_kernels_match_plain_on_card(card, B, T, N, pad):
+    m, a = [x.to(card) for x in t(*generic_vote_case(T + N, B, T, N, pad))]
+    before = dict(ops.LAUNCHES)
+    got = ops.ensemble_vote_batched(m, a)
+    got1 = ops.ensemble_vote(m[0], a[0])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ensemble_vote_batched"] == \
+        before["ensemble_vote_batched"] + 1
+    assert ops.LAUNCHES["ensemble_vote"] == before["ensemble_vote"] + 1
+    torch.testing.assert_close(got, ref.ensemble_vote_batched_ref(m, a),
+                               **TOL)
+    torch.testing.assert_close(got1, ref.ensemble_vote_ref(m[0], a[0]),
+                               **TOL)
+    # t walks in order in one thread: B = 1 is the same sum bit for bit,
+    # and the zero padding rows add exactly nothing
+    assert torch.equal(got1, got[0])
+    if pad:
+        assert torch.equal(
+            ops.ensemble_vote_batched(m[:, :T - pad].contiguous(),
+                                      a[:, :T - pad].contiguous()), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 37, 2048, 2049, 8192, 1_000_003])
+def test_dist_update_kernel_matches_plain_on_card(card, N):
+    rng = np.random.RandomState(N)
+    D = rng.rand(N).astype(np.float32)
+    D /= D.sum()
+    y = np.where(rng.rand(N) < 0.5, 1.0, -1.0).astype(np.float32)
+    h = rng.uniform(-1, 1, N).astype(np.float32)
+    D, y, h = [x.to(card) for x in t(D, y, h)]
+    before = ops.LAUNCHES["dist_update"]
+    got, z = ops.dist_update(0.7, D, y, h)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dist_update"] == before + 1
+    want, wz = ref.dist_update_ref(0.7, D, y, h)
+    assert z.shape == () and z.dtype == torch.float32
+    torch.testing.assert_close(z, wz, rtol=1e-6, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    # the same three kernels, the same order: equal run to run
+    again, z2 = ops.dist_update(torch.tensor(0.7, device=card), D, y, h)
+    assert torch.equal(again, got) and torch.equal(z2, z)

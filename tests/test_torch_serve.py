@@ -26,8 +26,8 @@ from repro.serve import (BatchConfig as JaxBatchConfig,  # noqa: E402
                          EnsembleRegistry as JaxRegistry,
                          EnsembleServer as JaxServer)
 from repro.sim.scenarios import DOMAINS  # noqa: E402
-from repro_torch.convert import (snapshot_from_numpy,  # noqa: E402
-                                 stumps_from_numpy)
+from repro_torch.convert import (params_from_numpy,  # noqa: E402
+                                 snapshot_from_numpy, stumps_from_numpy)
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.ops import KernelPolicy  # noqa: E402
 from repro_torch.serve import (BatchConfig, EnsembleRegistry,  # noqa: E402
@@ -90,8 +90,22 @@ def test_publishing_carried_learners_gives_the_same_fingerprint(trained):
         TENANT, learners, [float(a) for a in np.asarray(snap.alphas)],
         clock=snap.published_at, train_progress=snap.train_progress)
     assert mine.fingerprint == snap.fingerprint
-    with pytest.raises(NotImplementedError):
-        EnsembleRegistry().publish(TENANT, [], [], weak_name="mlp")
+    # generic learners: each dict's leaves hashed in sorted key order, the
+    # 0-d biases included, as the reference walks its pytree
+    rng = np.random.RandomState(1)
+    mlps = [{"w1": rng.randn(5, 16).astype(np.float32),
+             "b1": rng.randn(16).astype(np.float32),
+             "w2": rng.randn(16).astype(np.float32),
+             "b2": np.float32(rng.randn())} for _ in range(3)]
+    alphas = [0.5, 0.25, 0.125]
+    want = JaxRegistry().publish(
+        TENANT, [{k: jnp.asarray(v) for k, v in p.items()} for p in mlps],
+        alphas, clock=2.0, train_progress=3, weak_name="mlp")
+    got = EnsembleRegistry().publish(
+        TENANT, params_from_numpy(mlps), alphas, clock=2.0,
+        train_progress=3, weak_name="mlp")
+    assert got.weak_name == "mlp" and got.n_learners == 3
+    assert got.fingerprint == want.fingerprint
 
 
 def _serve(server, xt, rows):

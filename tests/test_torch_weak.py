@@ -114,7 +114,26 @@ def test_exact_ties_take_the_first_candidate():
 
 
 def test_unported_learners_raise():
+    """Every family the reference names builds now, and no name the
+    reference lacks: the logistic and MLP params cross the wire in the
+    reference's bytes, (F+1)*4 and (F*16+16+16+1)*4."""
+    import jax
     assert weak.get_weak_learner("stump").name == "stump"
+    with pytest.raises(KeyError):
+        weak.get_weak_learner("forest")
+    rng = np.random.RandomState(0)
+    x = rng.randn(40, 7).astype(np.float32)
+    y = np.where(x[:, 1] > 0, 1.0, -1.0).astype(np.float32)
+    w = np.full(40, 1 / 40, np.float32)
+    want_bytes = {"logistic": (7 + 1) * 4, "mlp": (7 * 16 + 16 + 16 + 1) * 4}
     for name in ("logistic", "mlp"):
-        with pytest.raises(NotImplementedError):
-            weak.get_weak_learner(name)
+        spec, jspec = weak.get_weak_learner(name), jweak.get_weak_learner(name)
+        assert spec.name == jspec.name == name
+        p = spec.fit(*(torch.from_numpy(a) for a in (x, y, w)),
+                     torch.Generator().manual_seed(0))
+        jp = jspec.fit(jnp.asarray(x), jnp.asarray(y), jnp.asarray(w),
+                       jax.random.key(0))
+        assert ({k: tuple(v.shape) for k, v in p.items()}
+                == {k: tuple(v.shape) for k, v in jp.items()})
+        assert spec.param_bytes(p) == jspec.param_bytes(jp) == want_bytes[name]
+        assert spec.predict(p, torch.from_numpy(x)).shape == (40,)
