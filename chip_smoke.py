@@ -44,11 +44,20 @@ nonzero (there is no CPU fall-back):
    through the CPU plain path; then one MLP run, cut to 5 rounds, and
    serve under torch.profiler;
 9. the kernel API path: ``ensemble_vote`` and ``dist_update`` through
-   ``repro_torch.kernels.ops`` at ``benchmarks/kernel_bench.py``'s shapes.
+   ``repro_torch.kernels.ops`` at ``benchmarks/kernel_bench.py``'s shapes;
+10. LM serve: qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
+   151,936) through the port's ``generate``: batch 4, a 512-token prompt,
+   32 greedy tokens, f32 params from the port's init; ``flash_attention``
+   must launch once per layer of the prefill; then the same params on the
+   CPU replay the prefill and every decode step in lockstep, fed the
+   card's tokens.
 
+Phase 3 also holds ``flash_attention`` to its plain version at the LM
+path's shape, a large one, a ragged T, d 80 and 128, ``causal=False`` and
+bf16, with ``scaled_dot_product_attention`` timed beside it.
 Launch counts are zeroed just before phase 4 and read just after phase 5,
-and zeroed again just before each later path (7.2, 8, 9) and read just
-after it.
+and zeroed again just before each later path (7.2, 8, 9, 10) and read
+just after it.
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -71,6 +80,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 F64_OPS_PER_S = 34e12           # H100 SXM f64 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = 1e-5                      # kernel vs plain: summation order only
 ROUNDING = 1e-6                 # two stumps' exact errors this close tie
 
@@ -99,6 +109,8 @@ KERNEL_INFO = {
                       "src/repro/kernels/ensemble_vote.py:48"),
     "dist_update": ("src/repro_torch/kernels/csrc/dist_update.cu",
                     "src/repro/kernels/dist_update.py:44"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:75"),
 }
 
 
@@ -158,9 +170,11 @@ def device_ms(fn, reps: int, name_has) -> float:
     return total / reps / 1e3 if n else float("nan")
 
 
-def bound_ms(nbytes: float, ops_f32: float, ops_f64: float = 0.0):
+def bound_ms(nbytes: float, ops_f32: float, ops_f64: float = 0.0,
+             ops_bf16: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops_f32 / F32_OPS_PER_S + ops_f64 / F64_OPS_PER_S) * 1e3
+    t_ops = (ops_f32 / F32_OPS_PER_S + ops_f64 / F64_OPS_PER_S
+             + ops_bf16 / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -376,6 +390,74 @@ def check_generic_kernels():
                 + ("none" if lib is None else f"{lib:.4f}")
                 + ("" if name != "dist_update" else
                    f" z_rel_err={r['z_rel_err']:.3g} w_ulps={r['w_ulps']}"))
+    return results
+
+
+# f32 at 2e-4 (the JAX package's flash tolerance, tests/test_kernels.py:83:
+# sums over up to T keys in another order), bf16 at 3e-2 (the inputs' and
+# the output's rounding)
+FLASH_CASES = (  # label: (B, H, T, d, causal, dtype)
+    ("main", (4, 16, 512, 64, True, torch.float32)),
+    ("large", (2, 16, 8192, 64, True, torch.float32)),
+    ("ragged", (4, 16, 200, 64, True, torch.float32)),
+    ("d80", (4, 16, 512, 80, True, torch.float32)),
+    ("d128", (4, 16, 512, 128, True, torch.float32)),
+    ("full", (4, 16, 512, 64, False, torch.float32)),
+    ("bf16", (4, 16, 512, 64, True, torch.bfloat16)),
+)
+
+
+def check_flash_attention():
+    """Phase 3 for ``flash_attention``: the kernel against its plain version
+    on the card at the LM path's prefill shape and the other cases of
+    ``FLASH_CASES``, with ``library_ms`` the time of
+    ``scaled_dot_product_attention`` on the same inputs (never called by
+    the port).  The bound counts q, k, v read and out written once, and
+    the product work these inputs need: 2 BH T^2 d under causality
+    (half of QK^T and of PV), 4 BH T^2 d without, at the f32 rate for f32
+    inputs and the bf16 tensor-core rate for bf16 ones."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    for label, (B, H, T, d, causal, dtype) in FLASH_CASES:
+        q, k, v = (torch.randn((B, H, T, d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-4 if dtype == torch.float32 else 3e-2
+        if not (got.dtype == dtype and torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol)):
+            raise AssertionError(f"flash_attention {label}: max err {err}")
+        work = (2.0 if causal else 4.0) * B * H * T * T * d
+        f32 = dtype == torch.float32
+        b, by = bound_ms(4 * B * H * T * d * got.element_size(),
+                         work if f32 else 0.0, ops_bf16=0.0 if f32 else work)
+        reps = 10 if label == "large" else 50
+        results[label] = dict(
+            shape=[B, H, T, d], causal=causal, dtype=str(dtype)[6:],
+            max_abs_err=err, tol=tol,
+            ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                       reps),
+            kernel_ms=device_ms(
+                lambda: ops.flash_attention(q, k, v, causal=causal),
+                min(reps, 20), "flash_attention_kernel"),
+            plain_ms=cuda_ms(
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                3 if label == "large" else 10),
+            bound_ms=b, bound_by=by,
+            library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=causal),
+                               reps))
+        del q, k, v, got, want
+    for label, r in results.items():
+        log(f"kernel flash_attention {label} {r['shape']} "
+            f"causal={r['causal']} {r['dtype']}: "
+            f"max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}) "
+            f"ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']:.4f}")
     return results
 
 
@@ -645,6 +727,17 @@ def serve(registry, datas):
 
 
 # ------------------------------------------------------------ phase 6
+def device_us_by_name(prof) -> dict:
+    """Device time (us) of a torch.profiler trace, by kernel name."""
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            key = evt.name.replace("(anonymous namespace)::", "")
+            key = key.split("(")[0][:70]
+            by_name[key] = by_name.get(key, 0.0) + evt.device_time_total
+    return by_name
+
+
 def profile_main_path(registry, datas, weak_learner="stump",
                       tenant="edge_vision", label="profile", rounds=25):
     """One more edge_vision enhanced training run of ``rounds`` rounds and
@@ -680,12 +773,7 @@ def profile_main_path(registry, datas, weak_learner="stump",
         server.drain()
         torch.cuda.synchronize()
         phases["serve"] = time.perf_counter() - t0
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            key = evt.name.replace("(anonymous namespace)::", "")
-            key = key.split("(")[0][:70]
-            by_name[key] = by_name.get(key, 0.0) + evt.device_time_total
+    by_name = device_us_by_name(prof)
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = 1e3 * sum(phases.values())
     log(f"{label}: {weak_learner} {rounds} rounds wall_ms={wall_ms:.1f} "
@@ -1475,6 +1563,137 @@ def kernel_api_path():
         f"ensemble_vote {tuple(m.shape)} match their plain versions")
 
 
+# ------------------------------------------------------------ phase 10
+LM_ARCH = "qwen1.5-0.5b"        # repro.launch.serve's default --arch
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32
+# card against the CPU replay, as a share of the largest |logit|: the
+# prefill differs in the order of f32 sums only (cuBLAS and the kernel
+# against the CPU's), decode also where a cached key or value rounds to the
+# other bf16 neighbour (tests/test_torch_lm.py holds the port to the
+# reference at 2e-4 on 2 layers; 24 layers amplify it)
+LM_PREFILL_REL = 1e-4
+LM_DECODE_REL = 1e-3
+
+
+def lm_serve():
+    """Phase 10: qwen1.5-0.5b at full width through the port's
+    ``generate`` on the card, counts zeroed just before and read just after;
+    then prefill and generate timed, and one generate traced for the card's
+    busy share; then the same params on the CPU replay the prefill and
+    every decode step, fed the card's tokens.  Returns the launches of the
+    counted run."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    smi = nvidia_smi()
+    cfg = get_arch(LM_ARCH)
+    model = Model(cfg, device=CARD)
+    params = model.init(torch.Generator(CARD).manual_seed(0))
+    n_params = sum(t.numel() for t in params.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(CARD).manual_seed(1),
+                            device=CARD, dtype=torch.int32)
+    S = LM_PROMPT + LM_NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    seqs = generate(model, params, prompts, LM_NEW, cache_len=S,
+                    step_logits=steps)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"LM serve {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+        f"{n_params:,} params f32; launches {launches} | {smi}")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in one "
+                             f"prefill of {cfg.n_layers} layers")
+    if seqs.shape != (LM_BATCH, S) or not all(
+            torch.isfinite(x).all() for x in steps) or \
+            len(steps) != LM_NEW + 1:
+        raise AssertionError("LM serve: wrong shape or non-finite logits")
+
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: model.prefill(
+            params, {"tokens": prompts}, cache_seq=S), 5)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        generate(model, params, prompts, LM_NEW, cache_len=S)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    gen_s = statistics.median(walls)
+    decode_ms = (1e3 * gen_s - prefill_ms) / LM_NEW
+    log(f"LM serve {cfg.name} B={LM_BATCH} prompt={LM_PROMPT} "
+        f"new={LM_NEW}: prefill_ms={prefill_ms:.3f} "
+        f"decode_ms_per_token={decode_ms:.3f} generate_s={gen_s:.4f} "
+        f"(first {first_s:.3f}) tokens_per_s={LM_BATCH * LM_NEW / gen_s:.1f} "
+        f"peak_mem_gb={peak / 1e9:.3f} | {smi}")
+
+    with cuda_profile() as prof:
+        t0 = time.perf_counter()
+        generate(model, params, prompts, LM_NEW, cache_len=S)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = device_us_by_name(prof)
+    busy_ms = sum(by_name.values()) / 1e3
+    n_kernels = sum(evt.device_type == torch.autograd.DeviceType.CUDA
+                    for evt in prof.events())
+    log(f"profile LM generate: wall_ms={wall_ms:.1f} device_busy_ms="
+        f"{busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.4f} "
+        f"device_ops={n_kernels} (one prefill, {LM_NEW} decode steps) "
+        f"| {smi}")
+    for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"profile LM generate:   {us / 1e3:9.3f} ms  {key}")
+
+    # the CPU replay, in lockstep: fed the card's tokens
+    t0 = time.perf_counter()
+    cpu = Model(cfg, device="cpu")
+    cpu_params = cpu.init()
+    cpu_params.load_state_dict(params.state_dict())
+    seqs = seqs.cpu()
+    rels, scales, compared, skipped = [], [], 0, 0
+    with torch.no_grad():
+        logits, caches = cpu.prefill(cpu_params, {"tokens": prompts.cpu()},
+                                     cache_seq=S)
+        for i in range(LM_NEW + 1):
+            card = steps[i].cpu()
+            scale = float(logits.abs().max())
+            rel = float((card - logits).abs().max()) / scale
+            rels.append(rel)
+            scales.append(scale)
+            if rel > (LM_PREFILL_REL if i == 0 else LM_DECODE_REL):
+                raise AssertionError(f"LM step {i}: card logits {rel:.3g} of "
+                                     f"the largest |logit| from the CPU's")
+            if i == LM_NEW:
+                break
+            tok = seqs[:, LM_PROMPT + i]
+            top2 = torch.topk(logits, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_DECODE_REL * scale
+            mine = torch.clamp(logits.argmax(-1), max=cfg.vocab_size - 1)
+            if not torch.equal(mine[sure], tok[sure].long()):
+                raise AssertionError(f"LM step {i}: greedy tokens differ "
+                                     f"where the top-two gap is clear")
+            compared += int(sure.sum())
+            skipped += int((~sure).sum())
+            logits, caches = cpu.decode_step(cpu_params, tok[:, None],
+                                             caches, LM_PROMPT + i)
+    log(f"LM lockstep on the CPU ({time.perf_counter() - t0:.1f} s): "
+        f"prefill logits within {rels[0]:.3g} of the largest |logit| "
+        f"(tol {LM_PREFILL_REL}), decode within {max(rels[1:]):.3g} "
+        f"(tol {LM_DECODE_REL}), largest |logit| {min(scales):.4g}.."
+        f"{max(scales):.4g}; greedy tokens equal at {compared} of "
+        f"{compared + skipped} picks ({skipped} near-ties not compared) "
+        f"| {smi}")
+    del params, cpu_params
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1500,6 +1719,7 @@ def main() -> int:
     kernel_results = check_kernels()
     kernel_results.update(check_generic_kernels())
     kernel_results["stump_scan_batched"] = check_scan_batched()
+    kernel_results["flash_attention"] = check_flash_attention()
 
     obs.set_registry(obs.MetricsRegistry())
     registry = EnsembleRegistry()
@@ -1557,6 +1777,11 @@ def main() -> int:
                                  f"{api_launches[name]} times, not once")
         launches[name] = api_launches[name]
 
+    # the LM serve path: counts zeroed just before it, read just after
+    lm_launches = lm_serve()
+    log(f"launches on the LM serve path: {lm_launches}")
+    launches["flash_attention"] = lm_launches["flash_attention"]
+
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         main_r = kernel_results[name]["main"]
@@ -1567,7 +1792,8 @@ def main() -> int:
             bound_ms=main_r["bound_ms"], bound_by=main_r["bound_by"],
             library_ms=main_r["library_ms"], kernel_ms=main_r["kernel_ms"],
             shape=main_r["shape"],
-            large=kernel_results[name]["large"]))
+            **{label: r for label, r in kernel_results[name].items()
+               if label != "main"}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

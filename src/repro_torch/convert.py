@@ -1,9 +1,10 @@
-"""Carry learners, snapshots and data across from numpy.
+"""Carry learners, snapshots, data and LM params across from numpy.
 
 Both packages compute on the same inputs when each is handed the same
-numpy arrays: the JAX package's learners, snapshots and domain data turn
-into numpy with ``np.asarray``, and these functions turn numpy into this
-package's equivalents.  Nothing here imports the JAX package.
+numpy arrays: the JAX package's learners, snapshots, domain data and LM
+params turn into numpy with ``np.asarray`` (``jax.tree.map`` for a params
+pytree), and these functions turn numpy into this package's equivalents.
+Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Dict, List, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.serve.registry import EnsembleSnapshot
 
@@ -86,3 +88,37 @@ def domain_data_from_numpy(clients: Sequence, val, test) -> Dict:
                 np.ascontiguousarray(np.asarray(y, np.float32)))
     return {"clients": [pair(x, y) for x, y in clients],
             "val": pair(*val), "test": pair(*test)}
+
+
+def lm_params_from_numpy(params: Mapping, cfg: ArchConfig, device="cpu"):
+    """The port's :class:`~repro_torch.models.transformer.Transformer` from
+    the JAX package's LM params pytree as numpy: ``embed``,
+    ``final_norm``, ``lm_head`` where untied, and ``blocks``, one dict per
+    pattern slot whose leaves carry a leading ``n_periods`` axis.  Layer i
+    takes period ``i // p`` of slot ``i % p``."""
+    from repro_torch.models.transformer import Transformer
+    dev = resolve_device(device)
+    model = Transformer(cfg, gen=None, device=dev)
+    p = cfg.pattern_period
+
+    def put(dst: torch.Tensor, src) -> None:
+        src = np.asarray(src)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"param of shape {src.shape} for "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(src, copy=True)))
+
+    with torch.no_grad():
+        put(model.embed, params["embed"])
+        put(model.final_norm, params["final_norm"])
+        if model.lm_head is not None:
+            put(model.lm_head, params["lm_head"])
+        for i, block in enumerate(model.blocks):
+            src = params["blocks"][i % p]
+            put(block.norm1, src["norm1"][i // p])
+            for name, t in block.attn.named_parameters():
+                put(t, src["attn"][name][i // p])
+            put(block.norm2, src["norm2"][i // p])
+            for name, t in block.mlp.items():
+                put(t, src["mlp"][name][i // p])
+    return model

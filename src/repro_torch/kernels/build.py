@@ -27,8 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C argument types of every exported function; a launcher takes
-# (pointers..., ints..., stream)
+# (pointers..., ints and floats..., stream)
 SIGNATURES = {
     "stump_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
@@ -38,6 +39,7 @@ SIGNATURES = {
     "ensemble_vote_launch": [_P, _P, _P, _I, _I, _P],
     "dist_update_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
     "dist_update_partials": [_L],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 # launchers return their CUDA error as an int; these functions return others
 RESTYPES = {"dist_update_partials": _L}

@@ -13,6 +13,7 @@ the counts).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict
 
@@ -25,7 +26,7 @@ LAUNCHES: Dict[str, int] = {"stump_scan": 0, "stump_scan_batched": 0,
                             "stump_vote_batched": 0,
                             "stump_vote_fp_batched": 0,
                             "ensemble_vote_batched": 0, "ensemble_vote": 0,
-                            "dist_update": 0}
+                            "dist_update": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -249,3 +250,41 @@ def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
                 D.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(),
                 Z.data_ptr(), partials.data_ptr(), N, _stream(D))
     return out, Z
+
+
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
+FLASH_MAX_D = 128
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention, q,k,v (B,H,T,d) -> (B,H,T,d) in q's dtype, f32
+    math at scale 1/sqrt(d); under ``causal`` query i sees keys j <= i (see
+    :func:`ref.flash_attention_ref`).  The card path takes f32 or bf16
+    inputs of one dtype and shape, any T and any d up to 128, with no
+    padding of either."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}: need three "
+                         f"equal (B,H,T,d)")
+    if q.dtype not in FLASH_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes one of {FLASH_DTYPES}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, H, T, d = q.shape
+    if not 1 <= d <= FLASH_MAX_D:
+        raise ValueError(f"flash_attention head dim {d} not in "
+                         f"1..{FLASH_MAX_D}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if B * H * T == 0:
+        return out
+    from repro_torch.kernels.build import load
+    with torch.cuda.device(q.device):
+        _launch("flash_attention", load().flash_attention_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B * H, T, d, int(causal), int(q.dtype == torch.bfloat16),
+                math.log2(math.e) / math.sqrt(d), _stream(q))
+    return out

@@ -7,6 +7,8 @@ and what the kernels are held against on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 F32 = torch.float32
@@ -164,3 +166,24 @@ def dist_update_ref(alpha, D: torch.Tensor, y: torch.Tensor,
     w = D.to(F32) * torch.exp(-a * y.to(F32) * h.to(F32))
     Z = torch.sum(w)
     return w / (Z + 1e-30), Z
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention.  q: (B,H,Tq,hd), k,v: (B,H,Tk,hd) ->
+    (B,H,Tq,hd) in q's dtype.
+
+    The math is f32 at scale 1/sqrt(hd); under ``causal`` query i sees the
+    keys j <= i + Tk - Tq (``tril(k=Tk-Tq)``), the rest take -1e30 before
+    the softmax, as in the JAX package's ``flash_attention_ref``.
+    """
+    Tq, Tk = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), k.to(F32)) * scale
+    if causal:
+        mask = torch.ones((Tq, Tk), dtype=torch.bool,
+                          device=q.device).tril(Tk - Tq)
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    wts = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", wts, v.to(F32))
+    return out.to(q.dtype)

@@ -31,7 +31,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert {"repro_torch.core.async_engine", "repro_torch.core.fleet",
             "repro_torch.sim.behavior", "repro_torch.sim.traces",
             "repro_torch.sim.scenarios", "repro_torch.sim.harness",
-            "repro_torch.launch.run_scenario"} <= set(mods)
+            "repro_torch.launch.run_scenario", "repro_torch.launch.serve",
+            "repro_torch.models.transformer",
+            "repro_torch.configs.registry"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -65,20 +67,32 @@ def test_no_module_imports_jax_or_repro(path):
 def test_entry_points_default_to_the_card():
     from repro_torch.configs.paper_fedboost import FedBoostConfig
     from repro_torch.core import FederatedBoostEngine
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
     from repro_torch.serve import BatchEvaluator, EnsembleRegistry
     import numpy as np
     x = np.zeros((8, 2), np.float32)
     y = np.ones(8, np.float32)
     data = {"clients": [(x, y)], "val": (x, y), "test": (x, y)}
     cfg = FedBoostConfig(n_clients=1, n_rounds=1)
+    lm = reduced(get_arch("qwen1.5-0.5b"))
     if torch.cuda.is_available():
         assert FederatedBoostEngine(cfg, data, "baseline").device.type == "cuda"
         assert BatchEvaluator(EnsembleRegistry()).device.type == "cuda"
+        assert Model(lm).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="cuda"):
         FederatedBoostEngine(cfg, data, "baseline")
     with pytest.raises(RuntimeError, match="cuda"):
         BatchEvaluator(EnsembleRegistry())
+    # generate runs on its model's device; the serving CLI's default model
+    # is on the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(lm)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--tokens", "1"])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -4,6 +4,8 @@ The plain PyTorch versions (``repro_torch.kernels.ref``) are held to
 ``repro.kernels.ref`` on the same numpy inputs, at ragged shapes with
 thresholds placed exactly on data values: errors and margins within
 rtol/atol 1e-5 (summation order only), fingerprint lanes bit for bit.
+``flash_attention`` is held to ``repro.kernels.ref`` and to the Pallas
+kernel in interpret mode at the JAX package's 2e-4 (3e-2 in bf16).
 The CUDA kernels are held to the plain versions on the card
 (``-m cuda``); those tests need neither JAX nor the JAX package, so they
 run on a machine that has only PyTorch.
@@ -288,3 +290,115 @@ def test_dist_update_kernel_matches_plain_on_card(card, N):
     # the same three kernels, the same order: equal run to run
     again, z2 = ops.dist_update(torch.tensor(0.7, device=card), D, y, h)
     assert torch.equal(again, got) and torch.equal(z2, z)
+
+
+# ----------------------------------------------------------- flash_attention
+# f32 at 2e-4 (the JAX package's own flash tolerance: sums over up to T keys
+# in another order, and XLA's exp against PyTorch's), bf16 at 3e-2 (the
+# inputs' and output's rounding)
+FLASH_TOL = dict(rtol=2e-4, atol=2e-4)
+FLASH_BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+FLASH_SHAPES = [(1, 1, 128, 64), (2, 3, 256, 64), (1, 2, 512, 128),
+                (2, 1, 384, 80)]
+
+
+def flash_case(seed, B, H, T, d):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, H, T, d).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,T,d", FLASH_SHAPES)
+def test_flash_attention_ref_matches_jax(jax_ref, B, H, T, d, causal):
+    jnp, jref = jax_ref
+    from repro.kernels import ops as jops
+    args = flash_case(B * H * T + d, B, H, T, d)
+    jargs = list(map(jnp.asarray, args))
+    got = ref.flash_attention_ref(*t(*args), causal=causal).numpy()
+    assert got.shape == (B, H, T, d) and got.dtype == np.float32
+    np.testing.assert_allclose(
+        got, np.asarray(jref.flash_attention_ref(*jargs, causal=causal)),
+        **FLASH_TOL)
+    # the Pallas kernel itself, in interpret mode
+    np.testing.assert_allclose(
+        got, np.asarray(jops.flash_attention(*jargs, causal=causal,
+                                             backend="interpret")),
+        **FLASH_TOL)
+    # a CPU tensor takes the plain version and launches nothing
+    before = ops.LAUNCHES["flash_attention"]
+    assert torch.equal(ops.flash_attention(*t(*args), causal=causal),
+                       torch.from_numpy(got))
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
+def test_flash_attention_ref_bf16_matches_jax(jax_ref):
+    jnp, jref = jax_ref
+    from repro.kernels import ops as jops
+    args = flash_case(7, 1, 2, 256, 64)
+    got = ref.flash_attention_ref(*[a.to(torch.bfloat16) for a in t(*args)])
+    assert got.dtype == torch.bfloat16
+    want = jops.flash_attention(*[jnp.asarray(a, jnp.bfloat16) for a in args],
+                                backend="interpret")
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **FLASH_BF16_TOL)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(jref.flash_attention_ref(*map(jnp.asarray, args))),
+        **FLASH_BF16_TOL)
+
+
+def test_flash_attention_ref_causal_row_sees_only_its_past():
+    # query i's output depends on no key or value past i
+    q, k, v = t(*flash_case(3, 1, 2, 40, 16))
+    base = ref.flash_attention_ref(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 25:] += 5.0
+    v2[:, :, 25:] -= 3.0
+    moved = ref.flash_attention_ref(q, k2, v2)
+    assert torch.equal(moved[:, :, :25], base[:, :, :25])
+    assert not torch.equal(moved[:, :, 25:], base[:, :, 25:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,T,d", FLASH_SHAPES + [
+    (1, 1, 1, 64), (1, 2, 200, 64), (2, 2, 77, 32), (1, 2, 65, 17),
+    (4, 16, 512, 64)])
+def test_flash_attention_kernel_matches_plain_on_card(card, B, H, T, d,
+                                                      causal):
+    args = [a.to(card) for a in t(*flash_case(T + d, B, H, T, d))]
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (B, H, T, d) and got.dtype == torch.float32
+    torch.testing.assert_close(
+        got, ref.flash_attention_ref(*args, causal=causal), **FLASH_TOL)
+    # a fixed k-tile order and no atomics: the same bits run to run
+    assert torch.equal(ops.flash_attention(*args, causal=causal), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,d", [(1, 2, 256, 64), (2, 3, 200, 128),
+                                     (1, 1, 130, 80)])
+def test_flash_attention_kernel_bf16_on_card(card, B, H, T, d):
+    args = [a.to(card, torch.bfloat16)
+            for a in t(*flash_case(T, B, H, T, d))]
+    got = ops.flash_attention(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(*args).float(),
+                               **FLASH_BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 1, 8, 64), device=card)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[:, :, :4], q)
+    wide = torch.zeros((1, 1, 8, 160), device=card)
+    with pytest.raises(ValueError):
+        ops.flash_attention(wide, wide, wide)
