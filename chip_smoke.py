@@ -53,8 +53,11 @@ nonzero (there is no CPU fall-back):
    card's tokens.
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
-path's shape, a large one, a ragged T, d 80 and 128, ``causal=False`` and
-bf16, with ``scaled_dot_product_attention`` timed beside it.
+path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
+bf16 at the path's shape, a large one and d 128, and the path's own
+(B,T,H,d) views written into a (B,T,H,d) buffer, with
+``scaled_dot_product_attention`` timed beside it; it counts the tensor-core
+instructions (HGMMA, HMMA) of each flash kernel in the built library's SASS.
 Launch counts are zeroed just before phase 4 and read just after phase 5,
 and zeroed again just before each later path (7.2, 8, 9, 10) and read
 just after it.
@@ -81,6 +84,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 F64_OPS_PER_S = 34e12           # H100 SXM f64 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12         # H100 SXM TF32 tensor cores, dense
 TOL = 1e-5                      # kernel vs plain: summation order only
 ROUNDING = 1e-6                 # two stumps' exact errors this close tie
 
@@ -149,12 +153,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int, name_has) -> float:
     """Device time (ms) per call of the CUDA kernels whose name contains
-    ``name_has`` (a string, or a tuple of strings for a call that launches
-    several kernels), over ``reps`` calls traced by torch.profiler: the
-    kernels alone, without the host time around their launch.  NaN when
-    the trace holds no such kernel."""
+    ``name_has`` (a string, a tuple of strings for a call that launches
+    several kernels, or None for every device operation of the call), over
+    ``reps`` calls traced by torch.profiler: the kernels alone, without the
+    host time around their launch.  NaN when the trace holds no such
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
-    names = (name_has,) if isinstance(name_has, str) else tuple(name_has)
+    names = ("",) if name_has is None else (
+        (name_has,) if isinstance(name_has, str) else tuple(name_has))
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -171,10 +177,10 @@ def device_ms(fn, reps: int, name_has) -> float:
 
 
 def bound_ms(nbytes: float, ops_f32: float, ops_f64: float = 0.0,
-             ops_bf16: float = 0.0):
+             ops_bf16: float = 0.0, ops_tf32: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (ops_f32 / F32_OPS_PER_S + ops_f64 / F64_OPS_PER_S
-             + ops_bf16 / BF16_OPS_PER_S) * 1e3
+             + ops_bf16 / BF16_OPS_PER_S + ops_tf32 / TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -404,26 +410,47 @@ FLASH_CASES = (  # label: (B, H, T, d, causal, dtype)
     ("d128", (4, 16, 512, 128, True, torch.float32)),
     ("full", (4, 16, 512, 64, False, torch.float32)),
     ("bf16", (4, 16, 512, 64, True, torch.bfloat16)),
+    ("bf16_large", (2, 16, 8192, 64, True, torch.bfloat16)),
+    ("bf16_d128", (4, 16, 512, 128, True, torch.bfloat16)),
+    # the LM path's layout: (B,T,H,d) buffers seen as (B,H,T,d), the
+    # result written into a (B,T,H,d) buffer
+    ("strided", (4, 16, 512, 64, True, torch.float32)),
 )
 
 
 def check_flash_attention():
     """Phase 3 for ``flash_attention``: the kernel against its plain version
     on the card at the LM path's prefill shape and the other cases of
-    ``FLASH_CASES``, with ``library_ms`` the time of
-    ``scaled_dot_product_attention`` on the same inputs (never called by
-    the port).  The bound counts q, k, v read and out written once, and
-    the product work these inputs need: 2 BH T^2 d under causality
-    (half of QK^T and of PV), 4 BH T^2 d without, at the f32 rate for f32
-    inputs and the bf16 tensor-core rate for bf16 ones."""
+    ``FLASH_CASES``, each result also bit-equal to a second call's, with
+    ``library_ms`` the time of ``scaled_dot_product_attention`` on the
+    same inputs (never called by the port) and ``library_kernel_ms`` its
+    device time.  The bound counts q, k, v read
+    and out written once, and the product work these inputs need: 2 BH T^2 d
+    under causality (half of QK^T and of PV), 4 BH T^2 d without, at the
+    bf16 tensor-core rate for bf16 inputs and, for f32 ones, as the
+    cheapest route to an f32-accurate result on this card: three TF32
+    products for each (split TF32) at the TF32 tensor-core rate."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(5)
     results = {}
     for label, (B, H, T, d, causal, dtype) in FLASH_CASES:
-        q, k, v = (torch.randn((B, H, T, d), generator=gen,
-                               device="cuda").to(dtype) for _ in range(3))
-        got = ops.flash_attention(q, k, v, causal=causal)
+        if label == "strided":
+            q, k, v = (torch.randn((B, T, H, d), generator=gen, device="cuda")
+                       .to(dtype).transpose(1, 2) for _ in range(3))
+            buf = torch.empty((B, T, H, d), dtype=dtype, device="cuda")
+
+            def call():
+                return ops.flash_attention(q, k, v, causal=causal,
+                                           out=buf.transpose(1, 2))
+        else:
+            q, k, v = (torch.randn((B, H, T, d), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+
+            def call():
+                return ops.flash_attention(q, k, v, causal=causal)
+        got = call().clone()
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
@@ -431,25 +458,29 @@ def check_flash_attention():
         if not (got.dtype == dtype and torch.allclose(
                 got.float(), want.float(), rtol=tol, atol=tol)):
             raise AssertionError(f"flash_attention {label}: max err {err}")
+        if not torch.equal(call(), got):
+            raise AssertionError(f"flash_attention {label}: two calls differ")
         work = (2.0 if causal else 4.0) * B * H * T * T * d
         f32 = dtype == torch.float32
-        b, by = bound_ms(4 * B * H * T * d * got.element_size(),
-                         work if f32 else 0.0, ops_bf16=0.0 if f32 else work)
-        reps = 10 if label == "large" else 50
+        b, by = bound_ms(4 * B * H * T * d * got.element_size(), 0.0,
+                         ops_bf16=0.0 if f32 else work,
+                         ops_tf32=3.0 * work if f32 else 0.0)
+        large = "large" in label
+        reps = 10 if large else 50
         results[label] = dict(
             shape=[B, H, T, d], causal=causal, dtype=str(dtype)[6:],
-            max_abs_err=err, tol=tol,
-            ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
-                       reps),
-            kernel_ms=device_ms(
-                lambda: ops.flash_attention(q, k, v, causal=causal),
-                min(reps, 20), "flash_attention_kernel"),
+            max_abs_err=err, tol=tol, ms=cuda_ms(call, reps),
+            kernel_ms=device_ms(call, min(reps, 20),
+                                "flash_attention_kernel"),
             plain_ms=cuda_ms(
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal),
-                3 if label == "large" else 10),
+                3 if large else 10),
             bound_ms=b, bound_by=by,
             library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=causal),
-                               reps))
+                               reps),
+            library_kernel_ms=device_ms(
+                lambda: sdpa(q, k, v, is_causal=causal), min(reps, 20),
+                None))
         del q, k, v, got, want
     for label, r in results.items():
         log(f"kernel flash_attention {label} {r['shape']} "
@@ -457,8 +488,46 @@ def check_flash_attention():
             f"max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}) "
             f"ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}) library_ms={r['library_ms']:.4f}")
+            f"({r['bound_by']}) library_ms={r['library_ms']:.4f} "
+            f"library_kernel_ms={r['library_kernel_ms']:.4f}")
+    flash_sass()
     return results
+
+
+def flash_sass() -> None:
+    """One line per instance of ``flash_attention_kernel`` in the built
+    library: its HGMMA (wgmma) and HMMA (mma.sync) instructions, from
+    ``cuobjdump -sass`` where the toolkit has it.  A bf16 instance without
+    HGMMA or an f32 one without HMMA fails the phase."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("sass: cuobjdump not found; tensor-core instructions not counted")
+        return
+    sass = subprocess.run([tool, "-sass", str(build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)"
+                          r"Li(\d+)E", line)
+            name = None if m is None else (
+                "float" if m.group(1) == "f" else "bf16", int(m.group(2)))
+            if name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in ("HGMMA", "HMMA"):
+                counts[name][op] += f" {op}." in line
+    if not counts:
+        raise AssertionError("sass: no flash_attention_kernel in the library")
+    for (dtype, D), c in sorted(counts.items()):
+        log(f"sass flash_attention_kernel<{dtype}, {D}>: "
+            f"HGMMA={c['HGMMA']} HMMA={c['HMMA']}")
+        if c["HGMMA" if dtype == "bf16" else "HMMA"] == 0:
+            raise AssertionError(f"sass: flash_attention_kernel<{dtype}, "
+                                 f"{D}> has no tensor-core instruction")
 
 
 # ------------------------------------------------------------ phase 4

@@ -28,6 +28,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # C argument types of every exported function; a launcher takes
 # (pointers..., ints and floats..., stream)
 SIGNATURES = {
@@ -39,7 +40,8 @@ SIGNATURES = {
     "ensemble_vote_launch": [_P, _P, _P, _I, _I, _P],
     "dist_update_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
     "dist_update_partials": [_L],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _P],
 }
 # launchers return their CUDA error as an int; these functions return others
 RESTYPES = {"dist_update_partials": _L}

@@ -13,9 +13,10 @@ the counts).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -70,7 +71,9 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current CUDA stream on t's device (the raw call:
+    building a ``torch.cuda.Stream`` costs several µs a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -254,37 +257,81 @@ def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
 
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 FLASH_MAX_D = 128
+LOG2E = math.log2(math.e)
+
+
+def tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where a TMA tensor map can read it in place (last
+    stride 1, a 16-byte aligned start, every other stride of an extent
+    above 1 a multiple of 16 bytes), else a copy whose rows are padded to
+    16 bytes, seen through a view of x's shape.  The padding is never
+    read: the map's extent is x's last dimension."""
+    e = x.element_size()
+    shape, stride = x.shape, x.stride()
+    ok = (shape[-1] == 1 or stride[-1] == 1) and x.data_ptr() % 16 == 0
+    for n, st in zip(shape[:-1], stride[:-1]):
+        ok = ok and (n == 1 or st * e % 16 == 0)
+    if ok:
+        return x
+    d = shape[-1]
+    buf = x.new_empty((*shape[:-1], -(-d * e // 16) * 16 // e))
+    buf[..., :d] = x
+    return buf[..., :d]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Softmax attention, q,k,v (B,H,T,d) -> (B,H,T,d) in q's dtype, f32
-    math at scale 1/sqrt(d); under ``causal`` query i sees keys j <= i (see
-    :func:`ref.flash_attention_ref`).  The card path takes f32 or bf16
-    inputs of one dtype and shape, any T and any d up to 128, with no
-    padding of either."""
-    if _on_cpu(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}: need three "
-                         f"equal (B,H,T,d)")
-    if q.dtype not in FLASH_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+                    causal: bool = True,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax attention, q (B,H,T,d), k and v (B,Hkv,T,d) with H a
+    multiple of Hkv (query head h reads key and value head h // (H/Hkv))
+    -> (B,H,T,d) in q's dtype, f32 softmax at scale 1/sqrt(d); under
+    ``causal`` query i sees keys j <= i (see :func:`ref.flash_attention_ref`).
+
+    The card path takes f32 or bf16 inputs of one dtype, any T and any d
+    up to 128, each with any strides whose last one is 1: a (B,T,H,d)
+    tensor seen through ``.transpose(1, 2)`` is read in place (a layout
+    that TMA cannot read, such as rows not a multiple of 16 bytes apart,
+    is copied once with padded rows).  ``out``, when given, is a (B,H,T,d)
+    tensor of q's dtype with last stride 1 that receives the result and is
+    returned: ``out=buf.transpose(1, 2)`` writes a (B,T,H,d) buffer."""
+    if _on_cpu(q, k, v, *(() if out is None else (out,))):
+        res = ref.flash_attention_ref(q, k, v, causal=causal)
+        return res if out is None else out.copy_(res)
+    shape, kv_shape = q.shape, k.shape
+    if len(shape) != 4 or len(kv_shape) != 4 or v.shape != kv_shape \
+            or kv_shape[0] != shape[0] or kv_shape[2:] != shape[2:] \
+            or kv_shape[1] < 1 or shape[1] % kv_shape[1]:
+        raise ValueError(f"flash_attention shapes q{tuple(shape)} "
+                         f"k{tuple(kv_shape)} v{tuple(v.shape)}: need q "
+                         f"(B,H,T,d) and k, v (B,Hkv,T,d), Hkv dividing H")
+    dtype = q.dtype
+    if dtype not in FLASH_DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"flash_attention takes one of {FLASH_DTYPES}, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    B, H, T, d = q.shape
+                        f"{dtype}, {k.dtype}, {v.dtype}")
+    B, H, T, d = shape
     if not 1 <= d <= FLASH_MAX_D:
         raise ValueError(f"flash_attention head dim {d} not in "
                          f"1..{FLASH_MAX_D}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=q.device)
+    elif out.shape != shape or out.dtype != dtype \
+            or (d > 1 and out.stride(-1) != 1):
+        raise ValueError(f"flash_attention out {tuple(out.shape)} "
+                         f"{out.dtype} stride {out.stride()}: need "
+                         f"{tuple(shape)} {dtype}, last stride 1")
     if B * H * T == 0:
         return out
+    q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
+    strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3]
+                                         + v.stride()[:3] + out.stride()[:3]))
     from repro_torch.kernels.build import load
-    with torch.cuda.device(q.device):
-        _launch("flash_attention", load().flash_attention_launch,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B * H, T, d, int(causal), int(q.dtype == torch.bfloat16),
-                math.log2(math.e) / math.sqrt(d), _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, B, H, kv_shape[1], T, d, int(causal),
+            int(dtype == torch.bfloat16), LOG2E / math.sqrt(d), _stream(q))
+    dev = q.get_device()
+    if dev == torch.cuda.current_device():
+        _launch("flash_attention", load().flash_attention_launch, *args)
+    else:
+        with torch.cuda.device(dev):
+            _launch("flash_attention", load().flash_attention_launch, *args)
     return out

@@ -170,13 +170,18 @@ def dist_update_ref(alpha, D: torch.Tensor, y: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True) -> torch.Tensor:
-    """Plain softmax attention.  q: (B,H,Tq,hd), k,v: (B,H,Tk,hd) ->
-    (B,H,Tq,hd) in q's dtype.
+    """Plain softmax attention.  q: (B,H,Tq,hd), k,v: (B,Hkv,Tk,hd) with H
+    a multiple of Hkv (query head h reads key and value head h // (H/Hkv))
+    -> (B,H,Tq,hd) in q's dtype.
 
     The math is f32 at scale 1/sqrt(hd); under ``causal`` query i sees the
     keys j <= i + Tk - Tq (``tril(k=Tk-Tq)``), the rest take -1e30 before
     the softmax, as in the JAX package's ``flash_attention_ref``.
     """
+    G = q.shape[1] // k.shape[1]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=1)
+        v = v.repeat_interleave(G, dim=1)
     Tq, Tk = q.shape[2], k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), k.to(F32)) * scale

@@ -123,16 +123,14 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
 
 def _flash(q, k, v) -> torch.Tensor:
     """Causal attention through the flash kernel: q (B,T,Hq,hd), k,v
-    (B,T,Hkv,hd) -> (B,T,Hq,hd).  K/V heads are repeated per group, so q
+    (B,T,Hkv,hd) -> (B,T,Hq,hd).  The kernel reads the (B,H,T,hd) views
+    of all three in place and writes the (B,T,Hq,hd) result directly; q
     head h reads kv head h // G as in :func:`_sdpa_chunked`."""
-    G = q.shape[2] // k.shape[2]
-    qh = q.transpose(1, 2)
-    kh = k.transpose(1, 2)
-    vh = v.transpose(1, 2)
-    if G > 1:
-        kh = kh.repeat_interleave(G, dim=1)
-        vh = vh.repeat_interleave(G, dim=1)
-    return ops.flash_attention(qh, kh, vh, causal=True).transpose(1, 2)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True,
+                        out=out.transpose(1, 2))
+    return out
 
 
 def _flash_applies(cfg: ArchConfig, window: int, positions) -> bool:

@@ -5,7 +5,9 @@ The plain PyTorch versions (``repro_torch.kernels.ref``) are held to
 thresholds placed exactly on data values: errors and margins within
 rtol/atol 1e-5 (summation order only), fingerprint lanes bit for bit.
 ``flash_attention`` is held to ``repro.kernels.ref`` and to the Pallas
-kernel in interpret mode at the JAX package's 2e-4 (3e-2 in bf16).
+kernel in interpret mode at the JAX package's 2e-4 (3e-2 in bf16); its
+f32 route's split-TF32 products are emulated here in torch and held to
+an f64 reference at 2e-4.
 The CUDA kernels are held to the plain versions on the card
 (``-m cuda``); those tests need neither JAX nor the JAX package, so they
 run on a machine that has only PyTorch.
@@ -359,6 +361,142 @@ def test_flash_attention_ref_causal_row_sees_only_its_past():
     assert not torch.equal(moved[:, :, 25:], base[:, :, 25:])
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (a 10-bit mantissa), to nearest with ties away
+    from zero, by bit masking: what ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(split: bool):
+    """a @ b as the tensor cores compute it from TF32 operands, summed in
+    f32: one product of the rounded operands, or with ``split`` the three
+    products lo.hi + hi.lo + hi.hi of x = hi + lo (the kernel's f32
+    route)."""
+    def one(a, b):
+        return tf32_rna(a) @ tf32_rna(b)
+
+    def three(a, b):
+        ah, bh = tf32_rna(a), tf32_rna(b)
+        al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+        return al @ bh + ah @ bl + ah @ bh
+    return three if split else one
+
+
+def attention_with(product, q, k, v):
+    """Causal softmax attention in q's dtype with both products taken by
+    ``product``, the softmax as the plain version takes it."""
+    T, d = q.shape[-2:]
+    s = product(q, k.transpose(-1, -2)) / np.sqrt(d)
+    keep = torch.ones((T, T), dtype=torch.bool).tril()
+    return product(torch.softmax(s.masked_fill(~keep, -1e30), -1), v)
+
+
+def lm_path_qkv():
+    """q, k, v as the LM path hands them to the kernel, from a reduced
+    qwen1.5-0.5b prefill of 128 tokens (its first layer)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer
+    cfg = reduced(get_arch("qwen1.5-0.5b"))
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(1))
+    seen = []
+    plain = ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        seen.append([x.contiguous() for x in (q, k, v)])
+        return plain(q, k, v, **kw)
+    ops.flash_attention = capture
+    try:
+        with torch.no_grad():
+            transformer.prefill(params, toks, cfg, 128)
+    finally:
+        ops.flash_attention = plain
+    return seen[0]
+
+
+@pytest.mark.parametrize("inputs", ["lm_path", "normal_q_x8"])
+def test_split_tf32_holds_the_f32_tolerance_where_one_product_does_not(
+        inputs):
+    """The f32 route's accuracy claim, before the card runs it: against an
+    f64 reference, attention from single TF32 products misses the f32
+    tolerance (2e-4), the three-product split holds it with room to spare,
+    on the LM path's own q, k, v and on unit normals with q scaled x8."""
+    if inputs == "lm_path":
+        q, k, v = lm_path_qkv()
+    else:
+        q, k, v = t(*flash_case(21, 2, 4, 128, 64))
+        q = q * 8
+    want = attention_with(lambda a, b: a @ b, q.double(), k.double(),
+                          v.double())
+    one = float((attention_with(tf32_product(False), q, k, v) - want)
+                .abs().max())
+    three = float((attention_with(tf32_product(True), q, k, v) - want)
+                  .abs().max())
+    assert one > FLASH_TOL["atol"] * 4
+    assert three < FLASH_TOL["atol"] / 10
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20,
+                      -(1.0 + 3 * 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0])
+    assert tf32_rna(x).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                                    -(1.0 + 2.0 ** -9), 1.0, 3.0]
+
+
+@pytest.mark.parametrize("Hkv", [4, 2, 1])
+def test_flash_attention_cpu_path_takes_views_groups_and_out(Hkv):
+    """On the CPU the wrapper reads the LM path's (B,T,H,d) views, k and v
+    with Hkv heads (query head h reads head h // (H/Hkv)), and writes an
+    ``out`` view of a (B,T,H,d) buffer: the plain version's result on
+    contiguous copies with k and v repeated per group."""
+    rng = np.random.RandomState(11 + Hkv)
+    B, T, H, d = 2, 37, 4, 16
+    q = torch.from_numpy(rng.randn(B, T, H, d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(B, T, Hkv, d).astype(np.float32))
+            for _ in range(2))
+    buf = torch.full((B, T, H, d), float("nan"))
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), out=buf.transpose(1, 2))
+    assert got.data_ptr() == buf.data_ptr()
+    G = H // Hkv
+    want = ref.flash_attention_ref(
+        q.transpose(1, 2).contiguous(),
+        k.transpose(1, 2).repeat_interleave(G, 1).contiguous(),
+        v.transpose(1, 2).repeat_interleave(G, 1).contiguous())
+    torch.testing.assert_close(buf.transpose(1, 2), want, rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,dtype,view,padded_row", [
+    ((2, 3, 5, 64), "float32", False, None),    # 256-byte rows: in place
+    ((2, 5, 3, 64), "float32", True, None),     # the LM path's view
+    ((2, 3, 5, 17), "float32", False, 20),      # 68-byte rows: padded
+    ((2, 3, 5, 1), "float32", False, 4),
+    ((2, 5, 3, 1), "float32", True, 4),         # 12-byte view rows
+    ((2, 3, 5, 8), "bfloat16", False, None),    # 16-byte rows
+    ((2, 3, 5, 12), "bfloat16", False, 16),
+    ((1, 1, 1, 3), "float32", False, None),     # no row is ever stepped
+])
+def test_tma_ready_copies_only_what_a_tensor_map_cannot_read(
+        shape, dtype, view, padded_row):
+    x = torch.arange(np.prod(shape), dtype=torch.float32).reshape(shape)
+    x = x.to(getattr(torch, dtype))
+    if view:
+        x = x.transpose(1, 2)
+    got = ops.tma_ready(x)
+    assert torch.equal(got, x)
+    if padded_row is None:
+        assert got is x
+    else:
+        assert got.data_ptr() != x.data_ptr()
+        assert got.stride() == (shape[1] * shape[2] * padded_row,
+                                got.shape[2] * padded_row, padded_row, 1)
+        assert got.data_ptr() % 16 == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,H,T,d", FLASH_SHAPES + [
@@ -390,6 +528,61 @@ def test_flash_attention_kernel_bf16_on_card(card, B, H, T, d):
     torch.testing.assert_close(got.float(),
                                ref.flash_attention_ref(*args).float(),
                                **FLASH_BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [1, 8, 32, 64, 80, 96, 128])
+@pytest.mark.parametrize("T", [1, 15, 64, 65, 200, 4096])
+def test_flash_attention_kernel_grid_on_card(card, T, d, causal, dtype):
+    """Every T and d of the grid, causal and full, f32 and bf16, with q
+    scaled x8 (logits of some 8 standard deviations, where one TF32 product
+    would miss 2e-4): contiguous (B,H,T,d) inputs, and the LM path's
+    (B,T,H,d) buffers seen as (B,H,T,d) with the result written into a
+    (B,T,H,d) buffer, give the plain version's result, and the same bits
+    on a second call."""
+    dt = getattr(torch, dtype)
+    tol = FLASH_TOL if dt == torch.float32 else FLASH_BF16_TOL
+    B, H = (1, 2) if T == 4096 else (2, 3)
+    q, k, v = (a.to(card, dt) for a in t(*flash_case(131 * T + d, B, H,
+                                                      T, d)))
+    q = q * 8                       # a power of 2: exact in bf16 too
+    want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, T, d) and got.dtype == dt
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal), got)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (q, k, v)]
+    buf = torch.empty((B, T, H, d), dtype=dt, device=card)
+    before = ops.LAUNCHES["flash_attention"]
+    ops.flash_attention(*views, causal=causal, out=buf.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(buf.transpose(1, 2).float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (6, 1)])
+def test_flash_attention_kernel_groups_on_card(card, H, Hkv, dtype):
+    """k and v with Hkv heads: query head h reads head h // (H/Hkv), as
+    the plain version (which repeats them) computes."""
+    dt = getattr(torch, dtype)
+    tol = FLASH_TOL if dt == torch.float32 else FLASH_BF16_TOL
+    rng = np.random.RandomState(H + Hkv)
+    B, T, d = 2, 300, 64
+    q = torch.from_numpy(rng.randn(B, H, T, d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(B, Hkv, T, d).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (x.to(card, dt) for x in (q, k, v))
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v).float(),
+                               **tol)
 
 
 @pytest.mark.cuda
