@@ -11,8 +11,10 @@ nonzero (there is no CPU fall-back):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at a large shape, with CUDA-event times, the
    plain version's time, the card's lower bound for the same work and,
-   for the two generic votes, the time of the one PyTorch call that
-   computes the same function;
+   for the two generic votes, the event and device time of the one
+   PyTorch call that computes the same function, the host work of the
+   wrapper cut into its parts, two calls bit-equal, and columns alone and
+   packed in a batch bit-equal;
 4. train: edge_vision at full size in both modes and iot at full size,
    enhanced, all on the card, publishing into one registry; each run is
    then repeated on the CPU in lockstep, handed the card's stump at every
@@ -156,24 +158,28 @@ def device_ms(fn, reps: int, name_has) -> float:
     ``name_has`` (a string, a tuple of strings for a call that launches
     several kernels, or None for every device operation of the call), over
     ``reps`` calls traced by torch.profiler: the kernels alone, without the
-    host time around their launch.  NaN when the trace holds no such
-    kernel."""
+    host time around their launch.  A trace that holds no such kernel (the
+    profiler now and then returns one without device events) is taken
+    again, up to three times; NaN after that."""
     from torch.profiler import ProfilerActivity, profile
     names = ("",) if name_has is None else (
         (name_has,) if isinstance(name_has, str) else tuple(name_has))
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = n = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and \
-                any(k in evt.name for k in names):
-            total += evt.device_time_total
-            n += 1
-    return total / reps / 1e3 if n else float("nan")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = n = 0
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA and \
+                    any(k in evt.name for k in names):
+                total += evt.device_time_total
+                n += 1
+        if n:
+            return total / reps / 1e3
+    return float("nan")
 
 
 def bound_ms(nbytes: float, ops_f32: float, ops_f64: float = 0.0,
@@ -295,13 +301,223 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
                .abs().max())
 
 
+def vote_row(call, lib, plain, B, T, N):
+    """The measurements of one vote case: ``call()`` the kernel's wrapper,
+    ``lib()`` the one PyTorch call computing the same function, ``plain()``
+    the plain version.  The kernel and the library call are timed in turns
+    (kernel, library, library, kernel; the mean of the two medians), event
+    times before any profiler session, as the other rows are.  Two calls
+    must give the same bits."""
+    nbytes = 4 * (B * T * N + B * T + B * N)
+    b, by = bound_ms(nbytes, 2.0 * B * T * N)
+    ms, lib_ms = cuda_ms(call, 25), cuda_ms(lib, 25)
+    lib_ms, ms = (lib_ms + cuda_ms(lib, 25)) / 2, (ms + cuda_ms(call, 25)) / 2
+    kernel_ms = device_ms(call, 20, "ensemble_vote_kernel")
+    lib_kernel_ms = device_ms(lib, 20, None)
+    lib_kernel_ms = (lib_kernel_ms + device_ms(lib, 20, None)) / 2
+    kernel_ms = (kernel_ms + device_ms(call, 20, "ensemble_vote_kernel")) / 2
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"vote {(B, T, N)}: two calls differ")
+    return dict(ms=ms, kernel_ms=kernel_ms, host_ms=ms - kernel_ms,
+                plain_ms=cuda_ms(plain, 20), bound_ms=b, bound_by=by,
+                tb_per_s=nbytes / kernel_ms / 1e9, bound_share=b / kernel_ms,
+                library_ms=lib_ms, library_kernel_ms=lib_kernel_ms)
+
+
+def host_us(variants, rounds: int = 15, calls: int = 200) -> dict:
+    """Host microseconds a call of each of ``variants`` (name -> function),
+    timed in turns: each round runs every variant ``calls`` times back to
+    back on the host's clock, in an order that rotates and reverses from
+    round to round.  The kernels launched are shorter than the host work
+    between them, so the host sets the pace.  Per variant: the median,
+    the least and the most over the rounds."""
+    names = list(variants)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        order = names[r % len(names):] + names[:r % len(names)]
+        for k in (order if r % 2 == 0 else order[::-1]):
+            fn = variants[k]
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times[k].append((t1 - t0) / calls * 1e6)
+    return {k: dict(median=statistics.median(v), min=min(v), max=max(v))
+            for k, v in times.items()}
+
+
+def vote_host_work(m, a, batched: bool) -> dict:
+    """The vote wrapper's host work at a path shape, cut into its parts
+    (:func:`host_us`): the whole wrapper, twice under two names (their
+    difference is the spread between identical variants), the wrapper as
+    it was before it skipped ``torch.cuda.device`` on the current card,
+    the ``ctypes`` launch alone on a preallocated output, ``torch.empty``
+    of the output, entering and leaving ``torch.cuda.device`` and
+    ``ops._on_device`` (what every wrapper now enters in its place), and
+    the device and dtype checks (``ops._on_cpu``, ``ops._f32``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import load
+    call = (lambda: ops.ensemble_vote_batched(m, a)) if batched else \
+        (lambda: ops.ensemble_vote(m, a))
+    shape = (m.shape[0], m.shape[2]) if batched else (m.shape[1],)
+    out = torch.empty(shape, dtype=torch.float32, device=m.device)
+    fn = (load().ensemble_vote_batched_launch if batched
+          else load().ensemble_vote_launch)
+    args = ((m.data_ptr(), a.data_ptr(), out.data_ptr()) + tuple(m.shape)
+            + (torch._C._cuda_getCurrentRawStream(0),))
+
+    def checks():
+        ops._on_cpu(m, a)
+        ops._f32("margins", m)
+        ops._f32("alphas", a)
+
+    def device_ctx():
+        with torch.cuda.device(m.device):
+            pass
+
+    def on_device():
+        with ops._on_device(m):
+            pass
+
+    def wrapper_before():
+        if ops._on_cpu(m, a):
+            raise AssertionError("vote inputs are on the CPU")
+        if a.shape != m.shape[:-1]:
+            raise ValueError(f"alphas must be {m.shape[:-1]}")
+        mm, aa = ops._f32("margins", m), ops._f32("alphas", a)
+        res = torch.empty(shape, dtype=torch.float32, device=mm.device)
+        from repro_torch.kernels.build import load
+        with torch.cuda.device(mm.device):
+            ops._launch(key, getattr(load(), key + "_launch"), mm.data_ptr(),
+                        aa.data_ptr(), res.data_ptr(), *m.shape,
+                        ops._stream(mm))
+        return res
+    key = "ensemble_vote_batched" if batched else "ensemble_vote"
+    return host_us({
+        "wrapper": call, "wrapper_again": call,
+        "wrapper_before": wrapper_before, "launch": lambda: fn(*args),
+        "empty": lambda: torch.empty(shape, dtype=torch.float32,
+                                     device=m.device),
+        "device_ctx": device_ctx, "on_device": on_device,
+        "checks": checks})
+
+
+VOTE_DEPTH_LINE = "  const bool deep = B * tiles <= sms;"
+
+
+def vote_depths(gen) -> dict:
+    """Device ms of the vote kernel at each load depth, at the four phase-3
+    shapes: copies of ``ensemble_vote.cu`` with the launcher's depth
+    choice replaced by a constant (a whole chunk a round, or half a chunk
+    at two blocks an SM) are built side by side into ``build/vote_depth``
+    and launched through ``ctypes``; each gives the shipped kernel's bits.
+    The shipped launcher picks the first where the column tiles are at
+    most one an SM."""
+    import ctypes
+    from repro_torch.kernels import build, ops
+    src = (build.CSRC / "ensemble_vote.cu").read_text()
+    if VOTE_DEPTH_LINE not in src:
+        raise AssertionError("ensemble_vote.cu: the depth choice moved")
+    out_dir = ROOT / "build" / "vote_depth"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, value in (("deep", "true"), ("stream", "false")):
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(src.replace(VOTE_DEPTH_LINE,
+                                  f"  const bool deep = {value};"))
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", str(cu), "-o",
+             str(out_dir / f"{name}.so")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {name} vote:\n{out}")
+        fn = ctypes.CDLL(str(out_dir / f"{name}.so")
+                         ).ensemble_vote_batched_launch
+        fn.argtypes = build.SIGNATURES["ensemble_vote_batched_launch"]
+        fns[name] = fn
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for B, T, N in ((2, 300, 64), (8, 1024, 4096), (1, 256, 8192),
+                    (1, 1024, 65536)):
+        m = torch.rand((B, T, N), generator=gen, device="cuda") * 2 - 1
+        a = torch.rand((B, T), generator=gen, device="cuda")
+        want = ops.ensemble_vote_batched(m, a)
+        row = {"shipped": "deep" if B * -(-N // 128) <= sms else "stream"}
+        for name, fn in fns.items():
+            out = torch.empty_like(want)
+            stream = torch._C._cuda_getCurrentRawStream(0)
+
+            def call():
+                rc = fn(m.data_ptr(), a.data_ptr(), out.data_ptr(), B, T, N,
+                        stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name} vote: CUDA error {rc}")
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"vote {(B, T, N)}: {name} depth differs")
+            row[name] = device_ms(call, 20, "ensemble_vote_kernel")
+        rows[f"{B}x{T}x{N}"] = row
+        log(f"vote depth {(B, T, N)}: shipped {row['shipped']}; device ms "
+            f"deep {row['deep']:.4f} stream {row['stream']:.4f}")
+    return rows
+
+
+def vote_batch_invariance(gen):
+    """The same 3 columns, T 300 and 1024, alone (B 1, N 3: the scalar
+    route, a whole chunk of loads a round) and packed among others into
+    (8, T + 24, 4096) with 24 zero padding rows (the 16-byte route, 256
+    tiles: half a chunk a round), through both wrappers: equal bit for
+    bit."""
+    from repro_torch.kernels import ops
+    dev = "cuda"
+    at = ((1, 0), (4, 2049), (7, 4095))          # (b, n) of each column
+    for T in (300, 1024):
+        m = torch.rand((8, T + 24, 4096), generator=gen, device=dev) * 2 - 1
+        a = torch.rand((8, T + 24), generator=gen, device=dev)
+        m[:, T:] = 0.0
+        a[:, T:] = 0.0
+        alone_a = torch.rand((1, T), generator=gen, device=dev)
+        alone_m = torch.stack([m[b, :T, n] for b, n in at], 1)[None]
+        for b, _ in at:
+            a[b, :T] = alone_a[0]
+        out = ops.ensemble_vote_batched(m, a)
+        got = {"alone": ops.ensemble_vote_batched(alone_m, alone_a)[0],
+               "alone single": ops.ensemble_vote(alone_m[0], alone_a[0]),
+               "packed": torch.stack([out[b, n] for b, n in at])}
+        torch.cuda.synchronize()
+        ref_bits = got["alone"].view(torch.int32)
+        for name, g in got.items():
+            if not torch.equal(g.view(torch.int32), ref_bits):
+                raise AssertionError(f"vote batch invariance T {T}: {name} "
+                                     f"{g.tolist()} != alone "
+                                     f"{got['alone'].tolist()}")
+        log(f"vote batch invariance T {T}: {', '.join(got)} equal bit for "
+            f"bit ({got['alone'].tolist()})")
+
+
 def check_generic_kernels():
     """Phase 3 for the generic learners' kernels: ``ensemble_vote_batched``
     at the generic serving batch's shape and a large one, ``ensemble_vote``
     and ``dist_update`` at ``benchmarks/kernel_bench.py``'s shapes and
     large ones, each against its plain version on the card, with
     ``library_ms`` the one PyTorch call that computes the same function
-    (``dist_update`` has none)."""
+    (``dist_update`` has none) and, for the votes, its device time
+    (``library_kernel_ms``), the achieved TB/s, the share of the bytes
+    bound, the host work before the launch (event - device) and, at the
+    path shapes, its parts (:func:`vote_host_work`), two calls bit-equal,
+    the batch invariance of :func:`vote_batch_invariance` and each load
+    depth's device time (:func:`vote_depths`).  The large votes' inputs
+    (134 and 268 MB) exceed the 50 MB L2, so each call reads HBM; the path
+    shapes' sit in L2, as the evaluator's just-written margins do."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(3)
     dev = "cuda"
@@ -324,15 +540,13 @@ def check_generic_kernels():
         lib = lambda: torch.bmm(alf[:, None, :], m)[:, 0]   # noqa: E731
         if not close(lib(), want, l1):
             raise AssertionError("torch.bmm disagrees with the plain version")
-        b, by = bound_ms(4 * (B * T * N + B * T + B * N), 2.0 * B * T * N)
         results.setdefault("ensemble_vote_batched", {})[label] = dict(
-            shape=[B, T, N], max_abs_err=err,
-            ms=cuda_ms(lambda: ops.ensemble_vote_batched(m, alf), 50),
-            kernel_ms=device_ms(lambda: ops.ensemble_vote_batched(m, alf),
-                                20, "ensemble_vote_kernel"),
-            plain_ms=cuda_ms(lambda: ref.ensemble_vote_batched_ref(m, alf),
-                             20),
-            bound_ms=b, bound_by=by, library_ms=cuda_ms(lib, 50))
+            shape=[B, T, N], max_abs_err=err, **vote_row(
+                lambda: ops.ensemble_vote_batched(m, alf), lib,
+                lambda: ref.ensemble_vote_batched_ref(m, alf), B, T, N))
+        if label == "main":
+            results["ensemble_vote_batched"][label]["host_us"] = \
+                vote_host_work(m, alf, True)
     for label, (T, N) in (("main", (256, 8192)), ("large", (1024, 65536))):
         # kernel_bench's inputs: sign margins, normal vote weights
         m = torch.sign(torch.randn((T, N), generator=gen, device=dev))
@@ -346,15 +560,16 @@ def check_generic_kernels():
         err = float((got - want).abs().max())
         if not close(got, want, l1):
             raise AssertionError(f"ensemble_vote {label}: max err {err}")
-        lib = lambda: alf @ m                                # noqa: E731
-        b, by = bound_ms(4 * (T * N + T + N), 2.0 * T * N)
         results.setdefault("ensemble_vote", {})[label] = dict(
-            shape=[T, N], max_abs_err=err,
-            ms=cuda_ms(lambda: ops.ensemble_vote(m, alf), 50),
-            kernel_ms=device_ms(lambda: ops.ensemble_vote(m, alf), 20,
-                                "ensemble_vote_kernel"),
-            plain_ms=cuda_ms(lambda: ref.ensemble_vote_ref(m, alf), 20),
-            bound_ms=b, bound_by=by, library_ms=cuda_ms(lib, 50))
+            shape=[T, N], max_abs_err=err, **vote_row(
+                lambda: ops.ensemble_vote(m, alf), lambda: alf @ m,
+                lambda: ref.ensemble_vote_ref(m, alf), 1, T, N))
+        if label == "main":
+            results["ensemble_vote"][label]["host_us"] = \
+                vote_host_work(m, alf, False)
+    vote_batch_invariance(gen)
+    results["ensemble_vote_batched"]["main"]["depth_kernel_ms"] = \
+        vote_depths(gen)
     for label, N in (("main", 8192), ("large", 4_194_304)):
         # kernel_bench's inputs: a softmax distribution, sign labels and
         # margins, alpha 0.7
@@ -388,14 +603,23 @@ def check_generic_kernels():
     for name, by_shape in results.items():
         for label, r in by_shape.items():
             lib = r["library_ms"]
+            if name == "dist_update":
+                extra = f" z_rel_err={r['z_rel_err']:.3g} w_ulps={r['w_ulps']}"
+            else:
+                extra = (f" library_kernel_ms={r['library_kernel_ms']:.4f}"
+                         f" host_ms={r['host_ms']:.4f}"
+                         f" TB/s={r['tb_per_s']:.3f}"
+                         f" bound_share={r['bound_share']:.3f}")
+                if "host_us" in r:
+                    extra += " host_us(median[min,max])=" + ",".join(
+                        f"{k}:{v['median']:.2f}[{v['min']:.2f},"
+                        f"{v['max']:.2f}]" for k, v in r["host_us"].items())
             log(f"kernel {name} {label} {r['shape']}: "
                 f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
                 f"kernel_ms={r['kernel_ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                 f"({r['bound_by']}) library_ms="
-                + ("none" if lib is None else f"{lib:.4f}")
-                + ("" if name != "dist_update" else
-                   f" z_rel_err={r['z_rel_err']:.3g} w_ulps={r['w_ulps']}"))
+                + ("none" if lib is None else f"{lib:.4f}") + extra)
     return results
 
 
@@ -1852,6 +2076,8 @@ def main() -> int:
     launches["flash_attention"] = lm_launches["flash_attention"]
 
     kernels = []
+    MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "kernel_ms", "shape")
     for name, (source, replaces) in KERNEL_INFO.items():
         main_r = kernel_results[name]["main"]
         kernels.append(dict(
@@ -1861,6 +2087,7 @@ def main() -> int:
             bound_ms=main_r["bound_ms"], bound_by=main_r["bound_by"],
             library_ms=main_r["library_ms"], kernel_ms=main_r["kernel_ms"],
             shape=main_r["shape"],
+            **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()
                if label != "main"}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,7 @@ the counts).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from dataclasses import dataclass
@@ -70,6 +71,18 @@ def _launch(name: str, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def _on_device(t: torch.Tensor):
+    """The context a launch on t's card runs in: ``torch.cuda.device``
+    where that card is not the current one, else nothing (entering the
+    context costs host time on every launch)."""
+    dev = t.get_device()
+    return _NO_SWITCH if dev == torch.cuda.current_device() \
+        else torch.cuda.device(dev)
+
+
 def _stream(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream on t's device (the raw call:
     building a ``torch.cuda.Stream`` costs several µs a launch)."""
@@ -94,7 +107,7 @@ def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if F * T == 0:
         return err
     from repro_torch.kernels.build import load
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         _launch("stump_scan", load().stump_scan_launch,
                 x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
                 err.data_ptr(), 1, N, F, T, _stream(x))
@@ -122,7 +135,7 @@ def stump_scan_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if B * F * T == 0:
         return err
     from repro_torch.kernels.build import load
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         _launch("stump_scan_batched", load().stump_scan_batched_launch,
                 x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
                 err.data_ptr(), B, N, F, T, _stream(x))
@@ -151,7 +164,7 @@ def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
     if B * N == 0:
         return out
     from repro_torch.kernels.build import load
-    with torch.cuda.device(xsel.device):
+    with _on_device(xsel):
         _launch("stump_vote_batched", load().stump_vote_launch,
                 xsel.data_ptr(), thr.data_ptr(), pol.data_ptr(),
                 alphas.data_ptr(), out.data_ptr(), B, T, N, _stream(xsel))
@@ -174,7 +187,7 @@ def stump_vote_fp_batched(xsel: torch.Tensor, thr: torch.Tensor,
     if B * N == 0:
         return out, f0, f1
     from repro_torch.kernels.build import load
-    with torch.cuda.device(dev):
+    with _on_device(xsel):
         _launch("stump_vote_fp_batched", load().stump_vote_fp_launch,
                 xsel.data_ptr(), thr.data_ptr(), pol.data_ptr(),
                 alphas.data_ptr(), out.data_ptr(), f0.data_ptr(),
@@ -186,8 +199,14 @@ def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor
                           ) -> torch.Tensor:
     """Per-tenant weighted ensemble margins for packed serving batches:
     margins (B,T,N), alphas (B,T) -> (B,N) f32, sum_t alphas * margins
-    (see :func:`ref.ensemble_vote_batched_ref`).  Zero-alpha padding rows
-    over zero margins contribute nothing; no padding is needed."""
+    (see :func:`ref.ensemble_vote_batched_ref`).
+
+    On the card the sum has one fixed order (``csrc/ensemble_vote.cu``):
+    chunks of 32 rows in t order, a fixed tree over each stage's 8 chunks,
+    stages added in order.  So a column's result is a fixed function of
+    its own alphas and margins: the same bits run to run and whatever else
+    shares the batch (B, N, zero padding in T or N).  Zero-alpha padding
+    rows over zero margins add exactly nothing; no padding is needed."""
     if _on_cpu(margins, alphas):
         return ref.ensemble_vote_batched_ref(margins, alphas)
     B, T, N = margins.shape
@@ -198,7 +217,7 @@ def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor
     if B * N == 0:
         return out
     from repro_torch.kernels.build import load
-    with torch.cuda.device(m.device):
+    with _on_device(m):
         _launch("ensemble_vote_batched", load().ensemble_vote_batched_launch,
                 m.data_ptr(), a.data_ptr(), out.data_ptr(), B, T, N,
                 _stream(m))
@@ -208,7 +227,9 @@ def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor
 def ensemble_vote(margins: torch.Tensor, alphas: torch.Tensor
                   ) -> torch.Tensor:
     """Weighted ensemble margin H = sum_t alphas_t margins_t: margins (T,N),
-    alphas (T,) -> (N,) f32 (see :func:`ref.ensemble_vote_ref`)."""
+    alphas (T,) -> (N,) f32 (see :func:`ref.ensemble_vote_ref`).  On the
+    card: the batched kernel at B = 1, the same fixed order, so a column
+    gives the bits :func:`ensemble_vote_batched` gives it in any batch."""
     if _on_cpu(margins, alphas):
         return ref.ensemble_vote_ref(margins, alphas)
     T, N = margins.shape
@@ -219,7 +240,7 @@ def ensemble_vote(margins: torch.Tensor, alphas: torch.Tensor
     if N == 0:
         return out
     from repro_torch.kernels.build import load
-    with torch.cuda.device(m.device):
+    with _on_device(m):
         _launch("ensemble_vote", load().ensemble_vote_launch,
                 m.data_ptr(), a.data_ptr(), out.data_ptr(), T, N, _stream(m))
     return out
@@ -248,7 +269,7 @@ def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
     lib = load()
     partials = torch.empty((lib.dist_update_partials(N),),
                            dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
+    with _on_device(D):
         _launch("dist_update", lib.dist_update_launch, a.data_ptr(),
                 D.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(),
                 Z.data_ptr(), partials.data_ptr(), N, _stream(D))
@@ -328,10 +349,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides, B, H, kv_shape[1], T, d, int(causal),
             int(dtype == torch.bfloat16), LOG2E / math.sqrt(d), _stream(q))
-    dev = q.get_device()
-    if dev == torch.cuda.current_device():
+    with _on_device(q):
         _launch("flash_attention", load().flash_attention_launch, *args)
-    else:
-        with torch.cuda.device(dev):
-            _launch("flash_attention", load().flash_attention_launch, *args)
     return out

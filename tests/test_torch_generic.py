@@ -3,7 +3,8 @@
 * The plain versions of ``ensemble_vote``, ``ensemble_vote_batched`` and
   ``dist_update`` against ``repro.kernels.ref`` on the same numpy inputs,
   ragged shapes included: margins within rtol/atol 1e-5, D' within atol
-  1e-6 and Z within rtol 1e-6 (summation order only).
+  1e-6 and Z within rtol 1e-6 (summation order only); the votes also
+  against the Pallas kernels themselves in interpret mode.
 * ``fit_logistic`` and ``fit_mlp`` (from the reference's init, which
   ``torch.Generator`` cannot draw) against the reference's fits, and
   ``fit_adaboost`` over both: every fitted leaf within ``REL`` of the
@@ -129,6 +130,31 @@ def test_vote_refs_match_jax(B, T, N, pad):
     np.testing.assert_allclose(
         ref.ensemble_vote_batched_ref(*_t(m[:, :T - pad], a[:, :T - pad])),
         got, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,N", [(2, 256, 512), (1, 128, 1024)])
+def test_vote_refs_match_the_pallas_kernels(B, T, N):
+    """The plain versions against the TPU kernels themselves, run in
+    interpret mode at block-multiple shapes, within rtol/atol 1e-5."""
+    _, jnp = _jax()
+    from repro.kernels.ensemble_vote import (ensemble_vote_batched_kernel,
+                                             ensemble_vote_kernel)
+    rng = np.random.RandomState(B + T + N)
+    m = rng.uniform(-1, 1, (B, T, N)).astype(np.float32)
+    m[:, ::4] = np.sign(m[:, ::4])                  # stump-like rows too
+    a = rng.rand(B, T).astype(np.float32)           # vote weights
+    a[:, -16:] = 0.0                                # the batch's T padding
+    m[:, -16:] = 0.0
+    np.testing.assert_allclose(
+        ref.ensemble_vote_batched_ref(*_t(m, a)).numpy(),
+        np.asarray(ensemble_vote_batched_kernel(
+            jnp.asarray(m), jnp.asarray(a), interpret=True)),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        ref.ensemble_vote_ref(*_t(m[0], a[0])).numpy(),
+        np.asarray(ensemble_vote_kernel(jnp.asarray(m[0]), jnp.asarray(a[0]),
+                                        interpret=True)),
+        rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("N", [1, 37, 1000, 8192, 8193])

@@ -272,6 +272,134 @@ def test_ensemble_vote_kernels_match_plain_on_card(card, B, T, N, pad):
                                       a[:, :T - pad].contiguous()), got)
 
 
+# csrc/ensemble_vote.cu's order: chunks of VOTE_ROWS rows (kRows there),
+# VOTE_WARPS chunks a stage (kWarps)
+VOTE_ROWS, VOTE_WARPS = 32, 8
+VOTE_STAGE_ROWS = VOTE_ROWS * VOTE_WARPS
+
+
+def vote_in_kernel_order(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``csrc/ensemble_vote.cu``'s sum, emulated in f32 with torch:
+    (B,T,N), (B,T) -> (B,N).  Chunks of ``VOTE_ROWS`` rows summed in t
+    order from zero, a stage's ``VOTE_WARPS`` chunk sums added as a
+    pairwise tree, the stage partials added in order from zero; every
+    multiply and add rounded on its own (no fused multiply-add)."""
+    B, T, N = m.shape
+    acc = torch.zeros((B, N), dtype=torch.float32)
+    for s0 in range(0, T, VOTE_STAGE_ROWS):
+        chunks = []
+        for t0 in range(s0, s0 + VOTE_STAGE_ROWS, VOTE_ROWS):
+            c = torch.zeros((B, N), dtype=torch.float32)
+            for tt in range(t0, min(t0 + VOTE_ROWS, T)):
+                c = c + a[:, tt, None] * m[:, tt]
+            chunks.append(c)
+        while len(chunks) > 1:
+            chunks = [chunks[i] + chunks[i + 1]
+                      for i in range(0, len(chunks), 2)]
+        acc = acc + chunks[0]
+    return acc
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def test_kernel_order_is_as_accurate_as_the_sequential_sum():
+    """Signed alphas at T = 1024 (four stages): the kernel's order and a
+    sequential f32 sum both stay within 1e-5 (1 + sum |alpha|) of an f64
+    sum, and the kernel's order is no further from it than 2x the
+    sequential sum's largest error."""
+    rng = np.random.RandomState(16)
+    B, T, N = 3, 1024, 200
+    m = rng.uniform(-1, 1, (B, T, N)).astype(np.float32)
+    m[:, ::4] = np.sign(m[:, ::4])
+    a = rng.randn(B, T).astype(np.float32)
+    exact = np.einsum("bt,btn->bn", a.astype(np.float64), m.astype(np.float64))
+    slack = 1e-5 * (1.0 + np.abs(a).astype(np.float64).sum(1))[:, None]
+    got = vote_in_kernel_order(*t(m, a)).numpy().astype(np.float64)
+    seq = np.zeros((B, N), np.float32)
+    for tt in range(T):
+        seq = seq + a[:, tt, None] * m[:, tt]
+    err, err_seq = np.abs(got - exact), np.abs(seq - exact)
+    assert (err <= slack).all() and (err_seq <= slack).all()
+    assert err.max() <= 2.0 * err_seq.max(), (err.max(), err_seq.max())
+    # and the emulation is the plain version's function
+    torch.testing.assert_close(vote_in_kernel_order(*t(m, a)),
+                               ref.ensemble_vote_batched_ref(*t(m, a)),
+                               rtol=0, atol=float(slack.max()))
+
+
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 255, 256, 257, 300, 513])
+def test_kernel_order_is_batch_invariant(T):
+    """The order the card is held to, on the CPU, at T on both sides of a
+    chunk (32 rows) and a stage (256 rows): the plain version's function
+    within rtol/atol 1e-5, and zero padding rows in T and zero columns in
+    N change no column's bits."""
+    m, a = generic_vote_case(T, 2, T, 5, 0)
+    got = vote_in_kernel_order(*t(m, a))
+    torch.testing.assert_close(got, ref.ensemble_vote_batched_ref(*t(m, a)),
+                               **TOL)
+    pad = np.zeros((3, T + 40, 9), np.float32)      # 40 rows, 4 columns
+    pad[1:, :T, 2:7] = m
+    pad_a = np.zeros((3, T + 40), np.float32)
+    pad_a[1:, :T] = a
+    assert torch.equal(bits(vote_in_kernel_order(*t(pad, pad_a))[1:, 2:7]),
+                       bits(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N", [
+    # N % 4 in {0, 1, 3}: the 16-byte route and the scalar one
+    (2, 300, 64), (2, 300, 65), (2, 300, 67),
+    # T across a stage boundary
+    (3, 255, 130), (3, 256, 130), (3, 257, 130),
+    (1, 1024, 8192), (70_000, 3, 1), (70_000, 3, 4),
+    # grids of more tiles than SMs: half a chunk in flight a round
+    (300, 600, 130), (200, 257, 67)])
+def test_ensemble_vote_kernel_is_the_fixed_order_on_card(card, B, T, N):
+    m, a = t(*generic_vote_case(B + T + N, B, T, N, 2))
+    want = vote_in_kernel_order(m, a)
+    m, a = m.to(card), a.to(card)
+    got = ops.ensemble_vote_batched(m, a)
+    # 1e-5 of 1 + sum |alpha|: a long sum that cancels keeps the rounding
+    # of its partial sums, in either order
+    slack = 1e-5 * (1.0 + a.abs().sum(1, keepdim=True))
+    assert ((got - ref.ensemble_vote_batched_ref(m, a)).abs() <= slack).all()
+    assert torch.equal(bits(got.cpu()), bits(want))
+    # run to run the same bits
+    assert torch.equal(bits(ops.ensemble_vote_batched(m, a)), bits(got))
+    if B == 1:
+        assert torch.equal(bits(ops.ensemble_vote(m[0], a[0])), bits(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [300, 1024])
+def test_ensemble_vote_kernel_is_batch_invariant_on_card(card, T):
+    """Three columns alone (B 1, N 3: the scalar route, a whole chunk of
+    loads a round) and packed among others into (SMs + 8, T + 24, 8) with
+    zero padding rows (the 16-byte route, more tiles than SMs: half a
+    chunk a round) give the same bits."""
+    B = torch.cuda.get_device_properties(card).multi_processor_count + 8
+    rng = np.random.RandomState(T)
+    m, a = generic_vote_case(T, B, T + 24, 8, 24)
+    at = [(0, 0), (B // 2, 3), (B - 1, 7)]          # (b, n) of each column
+    alone_m = np.stack([m[b, :T, n] for b, n in at], 1)[None]
+    alone_a = rng.rand(1, T).astype(np.float32)
+    for j, (b, n) in enumerate(at):
+        m[b, :T, n] = alone_m[0, :, j]
+        a[b, :T] = alone_a[0]
+    m, a, alone_m, alone_a = [x.to(card) for x in t(m, a, alone_m, alone_a)]
+    alone = ops.ensemble_vote_batched(alone_m, alone_a)[0]
+    packed = ops.ensemble_vote_batched(m, a)
+    assert torch.equal(bits(torch.stack([packed[b, n] for b, n in at])),
+                       bits(alone))
+    assert torch.equal(bits(ops.ensemble_vote(alone_m[0], alone_a[0])),
+                       bits(alone))
+    assert torch.equal(bits(alone.cpu()),
+                       bits(vote_in_kernel_order(*t(
+                           alone_m.cpu().numpy(), alone_a.cpu().numpy()))[0]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 37, 2048, 2049, 8192, 1_000_003])
 def test_dist_update_kernel_matches_plain_on_card(card, N):
