@@ -14,7 +14,12 @@ nonzero (there is no CPU fall-back):
    for the two generic votes, the event and device time of the one
    PyTorch call that computes the same function, the host work of the
    wrapper cut into its parts, two calls bit-equal, and columns alone and
-   packed in a batch bit-equal;
+   packed in a batch bit-equal; ``stump_scan`` bit-equal to its plain
+   version and to ``ref.scan_in_kernel_order`` at the launcher's split and
+   at half and twice its chunks, each timed, with the bound's share, the
+   TB/s, the FP64 pipe's floor at the SM clock ``nvidia-smi`` reads, the
+   wrapper's host work by part, and the launch floor (the device time of
+   one elementwise op on a one-element tensor);
 4. train: edge_vision at full size in both modes and iot at full size,
    enhanced, all on the card, publishing into one registry; each run is
    then repeated on the CPU in lockstep, handed the card's stump at every
@@ -29,7 +34,8 @@ nonzero (there is no CPU fall-back):
    card's busy time by kernel;
 7. fleet: the vectorized fleet profile on ``mobile_100k``'s 100,000
    clients.  (1) ``stump_scan_batched`` against its plain version on the
-   card, on the scenario's first fit wave and on a large-shard batch;
+   card, on the scenario's first fit wave and on a large-shard batch, bit
+   for bit on both load routes, each timed, with the FP64 pipe's floor;
    (2) the scenario at full width through ``run_scenario``, legacy trace,
    seed 0, both modes, cut from 4 rounds to 2: baseline counters and clock
    must equal the JAX package's, enhanced ones are printed beside its;
@@ -103,7 +109,7 @@ def close(got, want, l1=None) -> bool:
 KERNEL_INFO = {
     "stump_scan": ("src/repro_torch/kernels/csrc/stump_scan.cu",
                    "src/repro/kernels/stump_scan.py:41"),
-    "stump_scan_batched": ("src/repro_torch/kernels/csrc/stump_scan_batched.cu",
+    "stump_scan_batched": ("src/repro_torch/kernels/csrc/stump_scan.cu",
                            "src/repro/kernels/dispatch.py:245"),
     "stump_vote_batched": ("src/repro_torch/kernels/csrc/stump_vote.cu",
                            "src/repro/kernels/ensemble_vote.py:203"),
@@ -220,28 +226,7 @@ def vote_inputs(gen, B, T, N, pad_t):
 def check_kernels():
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {}
-    for label, (N, F, T) in (("main", (333, 64, 16)),
-                             ("large", (24000, 64, 16))):
-        x, y, w, thr = scan_inputs(gen, N, F, T)
-        got = ops.stump_scan(x, y, w, thr)
-        want = ref.stump_scan_ref(x, y, w, thr)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not close(got, want):
-            raise AssertionError(f"stump_scan {label}: max err {err}")
-        nbytes = 4 * (N * F + 2 * N + F * T) + 4 * F * T
-        # two f32 compares per (n, f, t), one f64 add per miss
-        misses = int(((x[:, :, None] > thr[None]) != (y > 0)[:, None, None])
-                     .sum())
-        b, by = bound_ms(nbytes, 2.0 * N * F * T, misses)
-        results.setdefault("stump_scan", {})[label] = dict(
-            shape=[N, F, T], max_abs_err=err,
-            ms=cuda_ms(lambda: ops.stump_scan(x, y, w, thr), 50),
-            kernel_ms=device_ms(lambda: ops.stump_scan(x, y, w, thr), 20,
-                                "stump_scan_kernel"),
-            plain_ms=cuda_ms(lambda: ref.stump_scan_ref(x, y, w, thr), 10),
-            bound_ms=b, bound_by=by, library_ms=None)
+    results = {"stump_scan": check_scan(gen)}
     for label, (B, T, N, pad) in (("main", (2, 300, 64, 20)),
                                   ("large", (8, 1024, 4096, 24))):
         xsel, thr, pol, alf = vote_inputs(gen, B, T, N, pad)
@@ -285,12 +270,196 @@ def check_kernels():
                 3),
             bound_ms=b, bound_by=by, library_ms=None)
     for name, by_shape in results.items():
+        if name == "stump_scan":
+            continue                     # logged by check_scan
         for label, r in by_shape.items():
             log(f"kernel {name} {label} {r['shape']}: "
                 f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
                 f"kernel_ms={r['kernel_ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                 f"({r['bound_by']})")
+    return results
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock ``nvidia-smi`` reads now (MHz): read right after a
+    timed loop, it is the clock under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def fp64_floor_ms(cell_rows: float, mhz: float) -> float:
+    """The FP64 pipe's least time for one DADD issue a cell a row: the
+    H100's 64 FP64 lanes an SM at the SM clock ``mhz``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return cell_rows / (sms * 64 * mhz * 1e6) * 1e3
+
+
+LAUNCH_FLOOR = {}
+
+
+def launch_floor() -> dict:
+    """The device and event time of one PyTorch elementwise op on a
+    one-element CUDA tensor, traced and timed as the kernels are: the
+    least a launch shows; a yardstick only."""
+    one = torch.zeros((1,), device="cuda")
+    fn = lambda: one.add_(1.0)                  # noqa: E731
+    LAUNCH_FLOOR.update(ms=cuda_ms(fn, 50), kernel_ms=device_ms(fn, 20, None))
+    log(f"launch_floor_ms={LAUNCH_FLOOR['kernel_ms']:.4f} (device; event "
+        f"{LAUNCH_FLOOR['ms']:.4f}): one add_ on a one-element tensor")
+    return LAUNCH_FLOOR
+
+
+def scan_host_work(x, y, w, thr) -> dict:
+    """The ``stump_scan`` wrapper's host work at the path shape, cut into
+    its parts (:func:`host_us`): the wrapper, twice under two names (their
+    difference is the spread between identical variants), and each part
+    alone: the shape checks and ``_f32`` x4, the split, the output
+    (``torch.empty_like``), the import and ``load()``, the stream, the
+    device context, and the ``ctypes`` launch on a preallocated output
+    with the arguments as the wrapper passes them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import load
+    N, F = x.shape
+    T = thr.shape[1]
+    dev = x.get_device()
+    split = ops.scan_split(N, F, T, ops._sms(dev))
+    vec = int(ops.scan_vec(T, thr))
+    out = torch.empty_like(thr)
+    fn = load().stump_scan_launch
+    stream = ops._stream(x)
+
+    def checks():
+        ops._on_cpu(x, y, w, thr)
+        if y.shape != (N,) or w.shape != (N,) or thr.shape != (F, T):
+            raise ValueError("shapes")
+        ops._f32("x", x)
+        ops._f32("y", y)
+        ops._f32("w", w)
+        ops._f32("thresholds", thr)
+
+    def import_load():
+        from repro_torch.kernels.build import load
+        return load().stump_scan_launch
+
+    def on_device():
+        with ops._on_device(x):
+            pass
+
+    def launch():
+        if fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
+              out.data_ptr(), None, N, F, T, *split, vec, stream) != 0:
+            raise RuntimeError("stump_scan launch failed")
+
+    call = lambda: ops.stump_scan(x, y, w, thr)          # noqa: E731
+    return host_us({
+        "wrapper": call, "wrapper_again": call, "checks": checks,
+        "split": lambda: ops.scan_split(N, F, T, ops._sms(dev)),
+        "empty_like": lambda: torch.empty_like(thr),
+        "import_load": import_load, "stream": lambda: ops._stream(x),
+        "on_device": on_device, "launch": launch})
+
+
+def neighbour_splits(N, F, T, split):
+    """The splits beside the launcher's: half the chunks (half the blocks
+    a column group, or at one block twice the columns a block) and twice
+    the chunks (twice the blocks), each block as wide as before."""
+    from repro_torch.kernels import ref
+
+    def make(cols, blocks):
+        chunks = 256 // cols * blocks
+        return ref.ScanSplit(max(1, -(-N // chunks)), chunks, blocks, cols)
+    smaller = (make(split.cols, split.blocks // 2) if split.blocks > 1
+               else make(split.cols * 2, 1) if split.cols < 256 else None)
+    return {"smaller": smaller,
+            "larger": make(split.cols, split.blocks * 2)}
+
+
+# the single scan's kernels: the pass over the rows, and the second pass
+# over the block sums where a column group takes more than one block
+SCAN_KERNELS = ("stump_scan_kernel", "stump_scan_combine_kernel")
+
+
+def check_scan(gen) -> dict:
+    """Phase 3 for ``stump_scan`` at the path's shape and a large one: the
+    kernel bit-equal to its plain version and to
+    ``ref.scan_in_kernel_order`` (the CPU emulation of its order) at the
+    launcher's split and at half and twice its chunks
+    (:func:`neighbour_splits`), each split's device time; event and device
+    time, the bytes and operations bound, its share and the TB/s, the
+    FP64 pipe's floor at the SM clock under load, the launch floor, and
+    at the path shape the wrapper's host work by part."""
+    from repro_torch.kernels import ops, ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = launch_floor()
+    results = {}
+    for label, (N, F, T) in (("main", (333, 64, 16)),
+                             ("large", (24000, 64, 16))):
+        x, y, w, thr = scan_inputs(gen, N, F, T)
+        hx = [host(a) for a in (x, y, w, thr)]
+        split = ops.scan_split(N, F, T, sms)
+        want = ref.stump_scan_ref(x, y, w, thr)
+        got = ops.stump_scan(x, y, w, thr)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        nbytes = 4 * (N * F + 2 * N + F * T) + 4 * F * T
+        # two f32 compares per (n, f, t), one f64 add per miss
+        misses = int(((x[:, :, None] > thr[None]) != (y > 0)[:, None, None])
+                     .sum())
+        b, by = bound_ms(nbytes, 2.0 * N * F * T, misses)
+        splits = {}
+        for name, sp in (("launcher", split),
+                         *neighbour_splits(N, F, T, split).items()):
+            if sp is None:
+                continue
+            call = (lambda sp=sp: ops._stump_scan_launch(x, y, w, thr, sp))
+            out = call()
+            torch.cuda.synchronize()
+            emul = ref.scan_in_kernel_order(*hx, sp)
+            if not (torch.equal(out, want) and torch.equal(out.cpu(), emul)):
+                raise AssertionError(
+                    f"stump_scan {label} split {tuple(sp)}: not bit-equal "
+                    f"(plain {float((out - want).abs().max())}, emulation "
+                    f"{float((out.cpu() - emul).abs().max())})")
+            k_ms = device_ms(call, 20, SCAN_KERNELS)
+            splits[name] = dict(split=list(sp), kernel_ms=k_ms,
+                                bound_share=b / k_ms,
+                                tb_per_s=nbytes / k_ms / 1e9)
+        call = lambda: ops.stump_scan(x, y, w, thr)          # noqa: E731
+        ms = cuda_ms(call, 50)
+        kernel_ms = device_ms(call, 20, SCAN_KERNELS)
+        mhz = sm_clock_mhz()
+        r = results[label] = dict(
+            shape=[N, F, T], split=list(split), max_abs_err=err,
+            bit_equal=True, ms=ms, kernel_ms=kernel_ms,
+            host_ms=ms - kernel_ms,
+            plain_ms=cuda_ms(lambda: ref.stump_scan_ref(x, y, w, thr), 10),
+            bound_ms=b, bound_by=by, bound_share=b / kernel_ms,
+            tb_per_s=nbytes / kernel_ms / 1e9, sm_mhz=mhz,
+            fp64_floor_ms=fp64_floor_ms(N * F * T, mhz),
+            launch_floor_ms=floor["kernel_ms"], library_ms=None,
+            splits=splits)
+        if label == "main":
+            r["host_us"] = scan_host_work(x, y, w, thr)
+        log(f"kernel stump_scan {label} {r['shape']} split {tuple(split)}: "
+            f"bit-equal to the plain version and the emulation; "
+            f"ms={ms:.4f} kernel_ms={kernel_ms:.4f} "
+            f"host_ms={r['host_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={b:.6f} ({by}) bound_share={r['bound_share']:.4f} "
+            f"TB/s={r['tb_per_s']:.3f} fp64_floor_ms={r['fp64_floor_ms']:.6f} "
+            f"(SM {mhz:.0f} MHz) launch_floor_ms={floor['kernel_ms']:.4f}")
+        for name, sr in splits.items():
+            log(f"  stump_scan {label} split {name} {tuple(sr['split'])}: "
+                f"kernel_ms={sr['kernel_ms']:.4f} "
+                f"bound_share={sr['bound_share']:.4f} "
+                f"TB/s={sr['tb_per_s']:.3f}")
+        if "host_us" in r:
+            log("  stump_scan host_us(median[min,max])=" + ",".join(
+                f"{k}:{v['median']:.2f}[{v['min']:.2f},{v['max']:.2f}]"
+                for k, v in r["host_us"].items()))
     return results
 
 
@@ -1150,10 +1319,15 @@ def scan_batched_bound(x, y, w, thr):
 def check_scan_batched():
     """Phase 7.1: the kernel against its plain version on the card, on the
     first fit wave of mobile_100k (its X, Y, D0 and threshold grids, built
-    by the fleet on the card) and on a large-shard batch."""
+    by the fleet on the card) and on a large-shard batch: bit-equal (and
+    within ``SCAN_TOL``), through the wrapper and on each load route
+    (16-byte and 4-byte, through the library's launcher), with each route's device
+    time, the bytes bound, its share and the TB/s, and the FP64 pipe's
+    floor at the SM clock under load."""
     from repro_torch.core import FederatedBoostEngine
     from repro_torch.core.fleet import FleetCore
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import load
     sc = fleet_scenario()
     t0 = time.perf_counter()
     data = sc.make_data(0)
@@ -1176,29 +1350,67 @@ def check_scan_batched():
     thr = torch.gather(x.transpose(1, 2), 2, rows).contiguous()
     cases = {"main": (core.X, core.Y, core.D, core.THR),
              "large": (x, y, w, thr)}
+    fn = load().stump_scan_batched_launch
     results = {}
     for label, args in cases.items():
         got = ops.stump_scan_batched(*args)
         want = ref.stump_scan_batched_ref(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if not err <= SCAN_TOL:
-            raise AssertionError(f"stump_scan_batched {label}: max err {err}")
-        del got, want
+        if not (err <= SCAN_TOL and torch.equal(got, want)):
+            raise AssertionError(f"stump_scan_batched {label}: max err {err}, "
+                                 f"not bit-equal")
+        B, N, F = args[0].shape
+        T = args[3].shape[2]
         b, by = scan_batched_bound(*args)
-        results[label] = dict(
-            shape=[args[0].shape[0], args[0].shape[1], args[0].shape[2],
-                   args[3].shape[2]], max_abs_err=err,
-            ms=cuda_ms(lambda: ops.stump_scan_batched(*args), 20),
-            kernel_ms=device_ms(lambda: ops.stump_scan_batched(*args), 10,
-                                "stump_scan_batched_kernel"),
+        nbytes = 4 * (B * N * F + 2 * B * N + 2 * B * F * T)
+        routes = {}
+        for route, vec in (("16-byte", 1), ("4-byte", 0)):
+            out = torch.empty_like(want)
+            ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
+            stream = torch._C._cuda_getCurrentRawStream(0)
+
+            def call(ptrs=ptrs, vec=vec, route=route):
+                rc = fn(*ptrs, B, N, F, T, vec, stream)
+                if rc != 0:
+                    raise RuntimeError(f"{route} scan: CUDA error {rc}")
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"stump_scan_batched {label} {route} "
+                                     f"route not bit-equal")
+            k_ms = device_ms(call, 10, "stump_scan_batched_kernel")
+            routes[route] = dict(kernel_ms=k_ms, bound_share=b / k_ms,
+                                 tb_per_s=nbytes / k_ms / 1e9)
+            del out
+        del got, want
+        ms = cuda_ms(lambda: ops.stump_scan_batched(*args), 20)
+        kernel_ms = device_ms(lambda: ops.stump_scan_batched(*args), 10,
+                              "stump_scan_batched_kernel")
+        mhz = sm_clock_mhz()
+        r = results[label] = dict(
+            shape=[B, N, F, T], max_abs_err=err, bit_equal=True,
+            load_route="16-byte" if ops.scan_vec(T, args[3]) else "4-byte",
+            ms=ms, kernel_ms=kernel_ms,
+            host_ms=ms - kernel_ms,
             plain_ms=cuda_ms(lambda: ref.stump_scan_batched_ref(*args), 3),
-            bound_ms=b, bound_by=by, library_ms=None)
-        r = results[label]
-        log(f"kernel stump_scan_batched {label} {r['shape']}: "
-            f"max_abs_err={err:.3g} ms={r['ms']:.4f} "
-            f"kernel_ms={r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+            bound_ms=b, bound_by=by, bound_share=b / kernel_ms,
+            tb_per_s=nbytes / kernel_ms / 1e9, sm_mhz=mhz,
+            fp64_floor_ms=fp64_floor_ms(B * N * F * T, mhz),
+            launch_floor_ms=LAUNCH_FLOOR.get("kernel_ms"), library_ms=None,
+            routes=routes)
+        log(f"kernel stump_scan_batched {label} {r['shape']} "
+            f"({r['load_route']} route): "
+            f"max_abs_err={err:.3g} bit-equal ms={ms:.4f} "
+            f"kernel_ms={kernel_ms:.4f} host_ms={r['host_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={b:.5f} ({by}) "
+            f"bound_share={r['bound_share']:.4f} TB/s={r['tb_per_s']:.3f} "
+            f"fp64_floor_ms={r['fp64_floor_ms']:.5f} (SM {mhz:.0f} MHz)")
+        for route, rr in routes.items():
+            log(f"  stump_scan_batched {label} {route} route: "
+                f"kernel_ms={rr['kernel_ms']:.4f} "
+                f"bound_share={rr['bound_share']:.4f} "
+                f"TB/s={rr['tb_per_s']:.3f}")
     del core, eng, cases, args
     torch.cuda.empty_cache()
     return results

@@ -32,8 +32,9 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 # C argument types of every exported function; a launcher takes
 # (pointers..., ints and floats..., stream)
 SIGNATURES = {
-    "stump_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "stump_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+    "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "stump_vote_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "stump_vote_fp_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ensemble_vote_batched_launch": [_P, _P, _P, _L, _I, _I, _P],

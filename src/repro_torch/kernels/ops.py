@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -89,10 +90,100 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+# csrc/stump_scan.cu's constants: threads a block, thresholds a thread
+SCAN_THREADS = 256
+SCAN_CHUNK = 16
+# one block a column group (one launch) while its chunks need at most this
+# many rows; beyond, blocks of 8 features, two blocks an SM, and a second
+# pass over the block sums
+SCAN_ONE_PASS_ROWS = 8
+SCAN_COLS = tuple(1 << p for p in range(9))          # 1, 2, 4, ..., 256
+SCAN_MAX_BLOCKS = 512        # blocks a column group: 32 lanes of 16 sums
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: int) -> int:
+    """The SM count of CUDA device ``dev``, read once."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def scan_candidate(N: int, F: int, T: int, sms: int, cols: int
+                   ) -> ref.ScanSplit:
+    """The split of one slot's rows over blocks of ``cols`` features (a
+    power of two up to 256) on a card of ``sms`` SMs.  A block holds
+    256 // cols chunks of each of its features.  One block a column group
+    (one launch) where its chunks need at most ``SCAN_ONE_PASS_ROWS`` rows
+    or the column groups alone give the grid two blocks an SM; else as many
+    blocks a column group as give it two blocks an SM, and a second pass
+    adds their sums."""
+    kb = SCAN_THREADS // cols
+    groups = -(-T // SCAN_CHUNK) * -(-F // cols)
+    blocks = 1
+    if -(-N // kb) > SCAN_ONE_PASS_ROWS:
+        blocks = max(1, min(-(-2 * sms // groups), -(-N // kb),
+                            SCAN_MAX_BLOCKS))
+    chunks = kb * blocks
+    return ref.ScanSplit(max(1, -(-N // chunks)), chunks, blocks, cols)
+
+
+@functools.lru_cache(maxsize=1024)
+def scan_split(N: int, F: int, T: int, sms: int) -> ref.ScanSplit:
+    """How :func:`stump_scan` splits one slot's rows on a card of ``sms``
+    SMs (see ``csrc/stump_scan.cu`` and :class:`ref.ScanSplit`).  Where a
+    one-launch split exists (:func:`scan_candidate`), the one with the
+    fewest rows a chunk, between equals the widest block; else blocks of
+    8 features (a warp reads one 32-byte sector of each row of x)."""
+    one_pass = [scan_candidate(N, F, T, sms, c) for c in reversed(SCAN_COLS)]
+    one_pass = [s for s in one_pass if s.blocks == 1]
+    if one_pass:
+        return min(one_pass, key=lambda s: s.rows)
+    return scan_candidate(N, F, T, sms, 8)
+
+
+def scan_workspace(F: int, T: int, split: ref.ScanSplit) -> int:
+    """Doubles of scratch a split takes: the block sums of its second pass
+    (none where a column group is one block)."""
+    if split.blocks == 1:
+        return 0
+    groups = -(-T // SCAN_CHUNK) * -(-F // split.cols)
+    return split.blocks * groups * split.cols * SCAN_CHUNK
+
+
+def scan_vec(T: int, *tensors: torch.Tensor) -> bool:
+    """The scans' 16-byte route: T a multiple of 4 (every threshold row
+    then starts 16-byte aligned) and every threshold and error tensor
+    16-byte aligned; else 4-byte loads and stores."""
+    return T % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _stump_scan_launch(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                       thr: torch.Tensor, split: ref.ScanSplit
+                       ) -> torch.Tensor:
+    """Launch ``csrc/stump_scan.cu`` on checked, contiguous f32 card
+    tensors with the rows split as ``split`` says (the launcher refuses a
+    split whose chunks do not cover N); returns the (F, T) errors."""
+    N, F = x.shape
+    T = thr.shape[1]
+    err = torch.empty_like(thr)
+    ws = None
+    if split.blocks > 1:
+        ws = torch.empty((scan_workspace(F, T, split),),
+                         dtype=torch.float64, device=x.device)
+    from repro_torch.kernels.build import load
+    with _on_device(x):
+        _launch("stump_scan", load().stump_scan_launch, x.data_ptr(),
+                y.data_ptr(), w.data_ptr(), thr.data_ptr(), err.data_ptr(),
+                None if ws is None else ws.data_ptr(), N, F, T, *split,
+                int(scan_vec(T, thr)), _stream(x))
+    return err
+
+
 def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                thresholds: torch.Tensor) -> torch.Tensor:
     """Weighted stump errors over the (F, T) grid: x (N,F), y/w (N,),
-    thresholds (F,T) -> (F,T) f32 (see :func:`ref.stump_scan_ref`)."""
+    thresholds (F,T) -> (F,T) f32 (see :func:`ref.stump_scan_ref`).  On
+    the card the rows are split as :func:`scan_split` picks for the card's
+    SM count; the sum's order is :func:`ref.scan_in_kernel_order`'s."""
     if _on_cpu(x, y, w, thresholds):
         return ref.stump_scan_ref(x, y, w, thresholds)
     N, F = x.shape
@@ -103,23 +194,19 @@ def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                          f"thr{tuple(thresholds.shape)}")
     x, y, w = _f32("x", x), _f32("y", y), _f32("w", w)
     thr = _f32("thresholds", thresholds)
-    err = torch.empty((F, T), dtype=F32, device=x.device)
     if F * T == 0:
-        return err
-    from repro_torch.kernels.build import load
-    with _on_device(x):
-        _launch("stump_scan", load().stump_scan_launch,
-                x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
-                err.data_ptr(), 1, N, F, T, _stream(x))
-    return err
+        return torch.empty_like(thr)
+    return _stump_scan_launch(x, y, w, thr,
+                              scan_split(N, F, T, _sms(x.get_device())))
 
 
 def stump_scan_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                        thresholds: torch.Tensor) -> torch.Tensor:
     """Per-slot weighted stump errors for a stacked fleet batch: x (B,N,F),
     y/w (B,N), thresholds (B,F,T) -> (B,F,T) f32 (see
-    :func:`ref.stump_scan_batched_ref`).  Any B is launched as it is: the
-    kernel's grid is flat, so no slot padding is needed."""
+    :func:`ref.stump_scan_batched_ref`, whose bits the kernel gives).  Any
+    B is launched as it is: the kernel's grid is flat, so no slot padding
+    is needed."""
     if _on_cpu(x, y, w, thresholds):
         return ref.stump_scan_batched_ref(x, y, w, thresholds)
     B, N, F = x.shape
@@ -131,14 +218,15 @@ def stump_scan_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                          f"thr{tuple(thresholds.shape)}")
     x, y, w = _f32("x", x), _f32("y", y), _f32("w", w)
     thr = _f32("thresholds", thresholds)
-    err = torch.empty((B, F, T), dtype=F32, device=x.device)
+    err = torch.empty_like(thr)
     if B * F * T == 0:
         return err
     from repro_torch.kernels.build import load
     with _on_device(x):
         _launch("stump_scan_batched", load().stump_scan_batched_launch,
                 x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
-                err.data_ptr(), B, N, F, T, _stream(x))
+                err.data_ptr(), B, N, F, T, int(scan_vec(T, thr, err)),
+                _stream(x))
     return err
 
 

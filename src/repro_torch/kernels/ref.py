@@ -8,6 +8,7 @@ and what the kernels are held against on the card.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +50,7 @@ def stump_scan_batched_ref(x: torch.Tensor, y: torch.Tensor,
 
     The sum runs over n = 0..N-1 in order, in f64, and is rounded once to
     f32: the rule of :func:`stump_scan_ref`, and the order the CUDA kernel
-    (``csrc/stump_scan_batched.cu``) sums in, so the two agree bit for bit.
+    (``csrc/stump_scan.cu``) sums in, so the two agree bit for bit.
     A loop over the rows keeps the working set at (B,F,T) whatever N is.
     """
     x, y, thresholds = x.to(F32), y.to(F32), thresholds.to(F32)
@@ -61,6 +62,68 @@ def stump_scan_batched_ref(x: torch.Tensor, y: torch.Tensor,
         miss = pred != y[:, n, None, None]
         err += miss * w[:, n, None, None]
     return err.to(F32)
+
+
+class ScanSplit(NamedTuple):
+    """How ``csrc/stump_scan.cu`` splits the rows of one slot: chunks of
+    ``rows`` consecutive rows, ``chunks`` a column, spread over ``blocks``
+    blocks (``chunks // blocks`` chunks a block), ``cols`` features a
+    block (a power of two up to 256).  The four fix the order of the
+    sum (:func:`scan_in_kernel_order`)."""
+    rows: int
+    chunks: int
+    blocks: int
+    cols: int
+
+
+def scan_in_kernel_order(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                         thresholds: torch.Tensor, split: ScanSplit
+                         ) -> torch.Tensor:
+    """``csrc/stump_scan.cu``'s sum for one slot, emulated on the CPU:
+    x (N,F), y/w (N,), thresholds (F,T), split -> (F,T) f32.  Used by the
+    tests only.
+
+    Chunk c holds rows [c * rows, (c + 1) * rows) that lie below N (a
+    chunk past N is empty); its sum runs over them in order from zero.
+    A block's kb = chunks // blocks chunks form a grid of kb / R rows of
+    R (chunk i * R + q, R = kb // 16 where kb >= 16, else 1); the block's
+    sum is a pairwise tree over i, ((v0 + v1) + (v2 + v3)) + ..., then
+    over q.  Where there are several blocks, their sums are padded with
+    zeros to 32 * P (P the least power of two that holds them) and added
+    as a pairwise tree.  All in f64, rounded once to f32."""
+    x, thresholds = x.to(F32), thresholds.to(F32)
+    y, w = y.to(F32), w.to(F32).double()
+    N, F = x.shape
+    T = thresholds.shape[1]
+    rows, chunks, blocks, cols = split
+    part = torch.zeros((chunks, F, T), dtype=torch.float64)
+    starts = torch.arange(chunks) * rows
+    for i in range(rows if N else 0):
+        n = starts + i
+        live = (n < N)[:, None, None]
+        n = n.clamp(max=N - 1)
+        above = x[n][:, :, None] > thresholds[None]
+        miss = torch.where(above, (y[n] != 1.0)[:, None, None],
+                           (y[n] != -1.0)[:, None, None])
+        part = part + torch.where(miss & live, w[n][:, None, None], 0.0)
+    kb = chunks // blocks
+    R = kb // 16 if kb >= 16 else 1
+    grid = part.view(blocks, kb // R, R, F, T)
+    for dim in (1, 2):                 # a pairwise tree over i, then q
+        while grid.shape[dim] > 1:
+            lo, hi = grid.unflatten(dim, (-1, 2)).unbind(dim + 1)
+            grid = lo + hi
+    block_sums = grid[:, 0, 0]
+    if blocks == 1:
+        return block_sums[0].to(F32)
+    leaves = 32                          # the second pass: 32 lanes of P
+    while leaves < blocks:
+        leaves *= 2
+    tree = torch.cat([block_sums,
+                      block_sums.new_zeros((leaves - blocks, F, T))])
+    while tree.shape[0] > 1:
+        tree = tree[0::2] + tree[1::2]
+    return tree[0].to(F32)
 
 
 def ensemble_vote_ref(margins: torch.Tensor, alphas: torch.Tensor

@@ -12,6 +12,9 @@ The CUDA kernels are held to the plain versions on the card
 (``-m cuda``); those tests need neither JAX nor the JAX package, so they
 run on a machine that has only PyTorch.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -191,9 +194,142 @@ def card():
     return torch.device("cuda")
 
 
+# ------------------------------------------------------------ stump scans
+SCAN_SHAPES = [(1, 1, 1), (37, 5, 3), (333, 64, 16), (517, 13, 21),
+               (4099, 64, 40)]
+# SM counts of cards the launcher may meet (the H100 SXM has 132)
+SCAN_SMS = [1, 8, 16, 66, 114, 132, 144]
+# splits by hand: (N, F, T) and ScanSplit(rows, chunks, blocks, cols)
+HAND_SPLITS = [
+    ((37, 5, 3), ref.ScanSplit(5, 8, 1, 32)),      # last chunk of 2 rows
+    ((37, 5, 3), ref.ScanSplit(1, 64, 1, 4)),      # 27 chunks past N
+    ((37, 5, 3), ref.ScanSplit(37, 1, 1, 256)),    # one chunk, in order
+    ((333, 64, 16), ref.ScanSplit(11, 32, 1, 8)),  # last chunk 3, one past
+    ((333, 64, 16), ref.ScanSplit(1, 512, 16, 8)),  # a row a chunk, 179 past
+    ((517, 13, 21), ref.ScanSplit(7, 80, 5, 16)),  # two passes, T > 16
+    ((4099, 64, 40), ref.ScanSplit(33, 128, 8, 16)),
+    ((4099, 64, 16), ref.ScanSplit(2, 2112, 66, 8)),  # 66 blocks: 4 a lane
+]
+
+
+def split_cases():
+    cases = {(shape, ops.scan_split(*shape, sms))
+             for shape in SCAN_SHAPES for sms in SCAN_SMS}
+    return sorted(cases) + HAND_SPLITS
+
+
+@pytest.mark.parametrize("shape,split", split_cases())
+def test_scan_in_kernel_order_matches_plain(shape, split):
+    """The card's order, emulated, at every split the launcher picks for
+    the scan shapes on every SM count above, and at splits by hand with a
+    short last chunk and chunks past N: bit-equal to the plain version
+    (both sum in f64 and round once, and these sums are exact)."""
+    N, F, T = shape
+    args = t(*scan_case(N + F + T, N, F, T))
+    assert torch.equal(ref.scan_in_kernel_order(*args, split),
+                       ref.stump_scan_ref(*args))
+
+
+def test_scan_in_kernel_order_is_its_own_order():
+    """Where an f64 sum is not exact the emulation follows its split.
+    Weights 1, 2**-24 and four of 2**-54: in one chunk each 2**-54 is lost
+    (under half of f64's last place at 1) and 1 + 2**-24 rounds to 1 in
+    f32 (a tie, to even); in two blocks of one chunk of three rows each
+    the second block adds three of them exactly first, and the total, 3/4
+    of a last place over the tie, rounds up to 1 + 2**-23."""
+    N = 6
+    x = torch.zeros((N, 1))
+    y = -torch.ones(N)                              # x > -1: every row misses
+    thr = torch.full((1, 1), -1.0)
+    w = torch.tensor([1.0, 2.0 ** -24] + [2.0 ** -54] * 4)
+    one = ref.scan_in_kernel_order(x, y, w, thr,
+                                   ref.ScanSplit(N, 1, 1, 256))
+    two = ref.scan_in_kernel_order(x, y, w, thr, ref.ScanSplit(3, 2, 2, 256))
+    assert one.item() == 1.0
+    assert two.item() == 1.0 + 2.0 ** -23
+
+
+@pytest.mark.parametrize("sms", SCAN_SMS)
+@pytest.mark.parametrize("shape", SCAN_SHAPES + [(24000, 64, 16),
+                                                 (0, 64, 16), (4, 48, 16)])
+def test_scan_split_is_a_grid_the_kernel_takes(shape, sms):
+    """What the launcher (csrc/stump_scan.cu) accepts: a power-of-two block
+    width, 256 threads a block in whole chunks, every row in a chunk, at
+    most 65,535 column groups; one block a column group where chunks of at
+    most SCAN_ONE_PASS_ROWS rows do or the column groups alone give two
+    blocks an SM, then the fewest rows a chunk among such candidates; else
+    a grid of two blocks an SM."""
+    N, F, T = shape
+    s = ops.scan_split(N, F, T, sms)
+    groups = -(-T // ops.SCAN_CHUNK) * -(-F // s.cols)
+    assert s.cols in ops.SCAN_COLS and s.chunks % s.blocks == 0
+    assert (s.chunks // s.blocks) * s.cols == ops.SCAN_THREADS
+    assert s.rows * s.chunks >= N and s.rows >= 1 and groups <= 65535
+    others = [ops.scan_candidate(N, F, T, sms, c) for c in ops.SCAN_COLS]
+    if s.blocks == 1:
+        assert s.rows <= ops.SCAN_ONE_PASS_ROWS or groups >= 2 * sms
+        assert ops.scan_workspace(F, T, s) == 0
+        assert s.rows == min(o.rows for o in others if o.blocks == 1)
+    else:
+        assert all(o.blocks > 1 for o in others) and s.cols == 8
+        assert groups * s.blocks >= min(2 * sms, groups * -(-N // 32))
+        assert ops.scan_workspace(F, T, s) == \
+            s.blocks * groups * s.cols * ops.SCAN_CHUNK
+
+
+def test_scan_split_covers_the_card_at_large_n():
+    """(24000, 64, 16) on the H100 (132 SMs): two blocks an SM, where one
+    block a feature left 68 of them idle; the path's shard (333 rows)
+    takes one block a column group and one launch."""
+    s = ops.scan_split(24000, 64, 16, 132)
+    assert (64 // s.cols) * s.blocks >= 2 * 132
+    s = ops.scan_split(333, 64, 16, 132)
+    assert s.blocks == 1 and s.rows <= ops.SCAN_ONE_PASS_ROWS
+
+
+def test_scan_split_walks_each_chunk_of_16_thresholds():
+    """T > 16: a column group holds one chunk of 16 thresholds, so there
+    are ceil(T / 16) times the column groups, and the emulation of the
+    launcher's split still matches the plain version."""
+    a = ops.scan_split(4099, 64, 16, 132)
+    b = ops.scan_split(4099, 64, 40, 132)
+    assert (64 // a.cols) * a.blocks >= 2 * 132
+    assert 3 * (64 // b.cols) * b.blocks >= 2 * 132
+    assert b.blocks < a.blocks
+    args = t(*scan_case(9, 300, 7, 40))
+    assert torch.equal(
+        ref.scan_in_kernel_order(*args, ops.scan_split(300, 7, 40, 132)),
+        ref.stump_scan_ref(*args))
+
+
+@pytest.mark.parametrize("T,offset,want", [
+    (16, 0, True), (40, 0, True), (4, 0, True),     # T % 4 == 0, aligned
+    (21, 0, False), (1, 0, False), (6, 0, False),   # T % 4 != 0
+    (16, 1, False), (16, 2, False), (16, 4, True)])  # views 4, 8, 16 B off
+def test_scan_route_takes_16_byte_loads_only_where_aligned(T, offset, want):
+    buf = torch.zeros(3 * 5 * T + offset)
+    thr = buf[offset:].view(3, 5, T)
+    assert thr.is_contiguous()
+    err = torch.empty((3, 5, T))
+    assert ops.scan_vec(T, thr, err) is want
+
+
+@pytest.mark.parametrize("name,c_value", [
+    ("SCAN_THREADS", "kThreads"), ("SCAN_CHUNK", "kChunk"),
+    ("SCAN_MAX_BLOCKS", "32 * kMaxPerLane")])
+def test_scan_constants_match_the_cuda_source(name, c_value):
+    """The split chooser's constants are csrc/stump_scan.cu's: a split
+    made from other ones would be refused by the launcher."""
+    src = (Path(ops.__file__).parent / "csrc" / "stump_scan.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert getattr(ops, name) == eval(c_value, {}, consts)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,F,T", [(1, 1, 1), (333, 64, 16), (517, 13, 21),
-                                   (4099, 64, 40)])
+                                   (4099, 64, 40), (24000, 64, 16),
+                                   (1000, 64, 1), (700, 20, 21)])
 def test_stump_scan_kernel_matches_plain_on_card(card, N, F, T):
     args = [a.to(card) for a in t(*scan_case(N, N, F, T))]
     before = ops.LAUNCHES["stump_scan"]
@@ -204,6 +340,47 @@ def test_stump_scan_kernel_matches_plain_on_card(card, N, F, T):
     torch.testing.assert_close(got, want, **TOL)
     # both sum in f64 and round once: equal bit for bit
     assert torch.equal(got, want)
+    split = ops.scan_split(N, F, T, ops._sms(got.get_device()))
+    assert torch.equal(got.cpu(), ref.scan_in_kernel_order(
+        *[a.cpu() for a in args], split))
+    # run to run the same bits
+    assert torch.equal(ops.stump_scan(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split", split_cases() + [
+    ((24000, 64, 16), ref.ScanSplit(47, 512, 16, 8)),
+    ((24000, 64, 16), ref.ScanSplit(24, 1024, 64, 16)),
+    ((24000, 64, 16), ref.ScanSplit(94, 256, 4, 4)),
+    ((24000, 64, 16), ref.ScanSplit(2, 16384, 512, 8)),  # the most blocks
+    ((1000, 64, 1), ref.ScanSplit(7, 160, 5, 8)),       # T 1
+    ((700, 20, 21), ref.ScanSplit(9, 80, 5, 16))])
+def test_stump_scan_kernel_is_the_fixed_order_on_card(card, shape, split):
+    """Any split the kernel takes, across chunk, warp and block edges, in
+    one launch or two: bit-equal to the emulation of its order and to the
+    plain version."""
+    N, F, T = shape
+    host = t(*scan_case(N + F + T, N, F, T))
+    args = [a.to(card) for a in host]
+    got = ops._stump_scan_launch(*args, split)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref.scan_in_kernel_order(*host, split))
+    assert torch.equal(got, ref.stump_scan_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split", [
+    ((37, 5, 3), ref.ScanSplit(1, 8, 1, 32)),       # 8 rows of 37
+    ((4099, 64, 16), ref.ScanSplit(1, 2112, 66, 8))])  # two passes
+def test_stump_scan_launcher_refuses_a_split_short_of_n(card, shape, split):
+    """Chunks that do not reach the last row would leave rows unsummed:
+    the launcher refuses the split and launches nothing."""
+    N, F, T = shape
+    args = [a.to(card) for a in t(*scan_case(N, N, F, T))]
+    before = ops.LAUNCHES["stump_scan"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops._stump_scan_launch(*args, split)
+    assert ops.LAUNCHES["stump_scan"] == before
 
 
 @pytest.mark.cuda
@@ -220,6 +397,51 @@ def test_stump_scan_batched_kernel_matches_plain_on_card(card, B, N, F, T):
     assert ops.LAUNCHES["stump_scan_batched"] == before + 1
     # both sum over the rows in order in f64 and round once
     assert torch.equal(got, ref.stump_scan_batched_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,T,B", [(333, 64, 16, 3), (24000, 64, 16, 2),
+                                     (37, 5, 21, 5)])
+def test_scan_kernels_take_any_label_on_card(card, N, F, T, B):
+    """Labels other than +1 and -1 (0, 0.5, NaN) are missed by both
+    predictions, as in the plain versions: both kernels give their bits,
+    the single one at one launch and at two."""
+    x, y, w, thr = scan_case(N + T, N, F, T)
+    y[::7], y[3::11], y[5::13] = 0.0, 0.5, np.nan
+    host = t(x, y, w, thr)
+    args = [a.to(card) for a in host]
+    got = ops.stump_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.stump_scan_ref(*args))
+    split = ops.scan_split(N, F, T, ops._sms(got.get_device()))
+    assert torch.equal(got.cpu(), ref.scan_in_kernel_order(*host, split))
+    bx, by, bw, bt = (np.stack([a] * B) for a in (x, y, w, thr))
+    bargs = [a.to(card) for a in t(bx, by, bw, bt)]
+    assert torch.equal(ops.stump_scan_batched(*bargs),
+                       ref.stump_scan_batched_ref(*bargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,F,T,offset,vec", [
+    (5, 37, 48, 21, 0, False),      # T % 4 != 0: 4-byte loads and stores
+    (5, 37, 48, 16, 1, False),      # thresholds 4 bytes off 16
+    (5, 37, 48, 16, 4, True),       # 16 bytes off: aligned again
+    (3, 4, 48, 40, 0, True),        # T > 16 on the 16-byte route
+    (7, 9, 3, 6, 0, False)])
+def test_stump_scan_batched_kernel_routes_on_card(card, B, N, F, T, offset,
+                                                  vec):
+    """The 16-byte and the 4-byte route, picked from T and the thresholds'
+    alignment: both give the plain version's bits."""
+    x, y, w, thr = t(*batched_scan_case(B + N + T, B, N, F, T))
+    buf = torch.zeros(thr.numel() + offset, device=card)
+    thr_card = buf[offset:].view(thr.shape)
+    thr_card.copy_(thr)
+    args = [a.to(card) for a in (x, y, w)]
+    err = torch.empty((B, F, T), device=card)
+    assert ops.scan_vec(T, thr_card, err) is vec
+    got = ops.stump_scan_batched(*args, thr_card)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref.stump_scan_batched_ref(x, y, w, thr))
 
 
 @pytest.mark.cuda
