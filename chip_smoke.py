@@ -19,7 +19,14 @@ nonzero (there is no CPU fall-back):
    at half and twice its chunks, each timed, with the bound's share, the
    TB/s, the FP64 pipe's floor at the SM clock ``nvidia-smi`` reads, the
    wrapper's host work by part, and the launch floor (the device time of
-   one elementwise op on a one-element tensor);
+   one elementwise op on a one-element tensor); the stump votes at the
+   path's shape, a large one and the path's shape on the 4-byte route,
+   bit-equal to the CPU emulation of their order
+   (``ref.stump_vote_in_kernel_order``) and to each other, lanes bit-equal
+   to the plain version's, each launcher variant (a copy of
+   ``stump_vote.cu`` with one choice fixed, built into ``build/``) timed
+   and held to the shipped bits, columns alone and packed bit-equal, and
+   the wrappers' host work by part;
 4. train: edge_vision at full size in both modes and iot at full size,
    enhanced, all on the card, publishing into one registry; each run is
    then repeated on the CPU in lockstep, handed the card's stump at every
@@ -29,7 +36,8 @@ nonzero (there is no CPU fall-back):
    apart is printed;
 5. serve: 2048 requests (25% repeats) from both tenants' test sets through
    ``EnsembleServer``, one tenant on the fused fingerprint path, then the
-   same batches again through the CPU plain path;
+   same batches again through the CPU plain path; the stump votes' launch
+   shapes are counted, and the commonest is then measured as in phase 3;
 6. profile: one more training run and serve under torch.profiler, for the
    card's busy time by kernel;
 7. fleet: the vectorized fleet profile on ``mobile_100k``'s 100,000
@@ -164,9 +172,12 @@ def device_ms(fn, reps: int, name_has) -> float:
     ``name_has`` (a string, a tuple of strings for a call that launches
     several kernels, or None for every device operation of the call), over
     ``reps`` calls traced by torch.profiler: the kernels alone, without the
-    host time around their launch.  A trace that holds no such kernel (the
-    profiler now and then returns one without device events) is taken
-    again, up to three times; NaN after that."""
+    host time around their launch.  The profiler now and then drops a
+    kernel from a trace (late in a full run, 19 of 20 calls traced, every
+    kernel alike), so a call's time is the mean device time of a traced
+    kernel times the kernels a call launches (the traced count over the
+    calls, rounded), and a shortfall is logged.  A trace that holds no such
+    kernel is taken again, up to three times; NaN after that."""
     from torch.profiler import ProfilerActivity, profile
     names = ("",) if name_has is None else (
         (name_has,) if isinstance(name_has, str) else tuple(name_has))
@@ -184,7 +195,11 @@ def device_ms(fn, reps: int, name_has) -> float:
                 total += evt.device_time_total
                 n += 1
         if n:
-            return total / reps / 1e3
+            per_call = max(1, round(n / reps))
+            if n != per_call * reps:
+                log(f"  device_ms {name_has}: {n} kernels traced for {reps} "
+                    f"calls")
+            return total / n * per_call / 1e3
     return float("nan")
 
 
@@ -223,62 +238,308 @@ def vote_inputs(gen, B, T, N, pad_t):
     return xsel, thr, pol, alphas
 
 
-def check_kernels():
+# the stump votes' phase-3 shapes (B, T, N, padding rows): the serving
+# path's, a large one, and the path's shape on the 4-byte route
+STUMP_CASES = (("main", (2, 300, 64, 20)), ("large", (8, 1024, 4096, 24)),
+               ("scalar", (2, 300, 61, 20)))
+# the profiler's name of each stump kernel (every instantiation)
+STUMP_KERNELS = {"stump_vote_batched": "stump_vote_kernel<false",
+                 "stump_vote_fp_batched": "stump_vote_kernel<true"}
+
+
+def stump_vote_cost(name, B, T, N):
+    """(bytes, f32-rate operations) of one stump vote: xsel and the three
+    row vectors read once, the margins (and the two lanes) written; a
+    subtract, an add, two compares and two multiplies a cell (and xor,
+    multiply, xor a cell a lane, 32-bit integer operations)."""
+    nbytes = 4 * B * T * N + 3 * 4 * B * T + 4 * B * N
+    ops_vote = 6.0 * B * T * N
+    if name == "stump_vote_fp_batched":
+        return nbytes + 2 * 4 * B * N, ops_vote + 6.0 * B * T * N
+    return nbytes, ops_vote
+
+
+def stump_vote_row(name, call, plain, plain_reps, B, T, N):
+    """One stump vote's measurements: event and device ms, the plain
+    version's event ms, the bound, its share and the TB/s, beside the
+    launch floor; two calls must give the same bits."""
+    nbytes, nops = stump_vote_cost(name, B, T, N)
+    b, by = bound_ms(nbytes, nops)
+    ms = cuda_ms(call, 50)
+    kernel_ms = device_ms(call, 20, STUMP_KERNELS[name])
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    for u, v in zip(first, again):
+        if not torch.equal(u.view(torch.int32), v.view(torch.int32)):
+            raise AssertionError(f"{name} {(B, T, N)}: two calls differ")
+    return dict(ms=ms, kernel_ms=kernel_ms, host_ms=ms - kernel_ms,
+                plain_ms=cuda_ms(plain, plain_reps), bound_ms=b,
+                bound_by=by, bound_share=b / kernel_ms,
+                tb_per_s=nbytes / kernel_ms / 1e9,
+                launch_floor_ms=LAUNCH_FLOOR["kernel_ms"], library_ms=None)
+
+
+def check_stump_shape(gen, label, B, T, N, pad) -> dict:
+    """Both stump votes at one shape: within the tolerance of the plain
+    version, bit-equal to the CPU emulation of their order
+    (``ref.stump_vote_in_kernel_order``) and to each other, the lanes
+    bit-equal to the plain version's; then timed (:func:`stump_vote_row`)
+    and each launcher variant timed and held to the shipped bits
+    (:func:`stump_variant_ms`)."""
     from repro_torch.kernels import ops, ref
+    args = vote_inputs(gen, B, T, N, pad)
+    got = ops.stump_vote_batched(*args)
+    want = ref.stump_vote_batched_ref(*args)
+    gm, g0, g1 = ops.stump_vote_fp_batched(*args)
+    wm, w0, w1 = ref.stump_vote_fp_batched_ref(*args)
+    emul = ref.stump_vote_in_kernel_order(*(host(a) for a in args))
+    torch.cuda.synchronize()
+    l1 = None if label != "large" else args[3].abs().sum(1, keepdim=True)
+    errs = {"stump_vote_batched": float((got - want).abs().max()),
+            "stump_vote_fp_batched": float((gm - wm).abs().max())}
+    if not (close(got, want, l1) and close(gm, wm, l1)):
+        raise AssertionError(f"stump votes {label}: max err {errs}")
+    if not (torch.equal(g0, w0) and torch.equal(g1, w1)):
+        raise AssertionError(f"fingerprint lanes {label} not bit-equal")
+    bits = lambda v: v.contiguous().view(torch.int32)           # noqa: E731
+    if not (torch.equal(bits(got.cpu()), bits(emul))
+            and torch.equal(bits(gm), bits(got))):
+        raise AssertionError(
+            f"stump votes {label}: not the emulation's bits (max diff "
+            f"{float((got.cpu() - emul).abs().max())}, fp kernel "
+            f"{float((gm - got).abs().max())})")
+    variants = stump_variant_ms(args, got, g0, g1)
+    rows = {}
+    for name, call, plain, reps in (
+            ("stump_vote_batched", lambda: ops.stump_vote_batched(*args),
+             lambda: ref.stump_vote_batched_ref(*args), 10),
+            ("stump_vote_fp_batched",
+             lambda: ops.stump_vote_fp_batched(*args),
+             lambda: ref.stump_vote_fp_batched_ref(*args), 3)):
+        r = rows[name] = dict(
+            shape=[B, T, N], max_abs_err=errs[name], emulation_bit_equal=True,
+            variant_kernel_ms={v: ms[name] for v, ms in variants.items()},
+            **stump_vote_row(name, call, plain, reps, B, T, N))
+        if name == "stump_vote_fp_batched":
+            r["lanes_bit_equal"] = True
+        log(f"kernel {name} {label} {r['shape']}: "
+            f"max_abs_err={r['max_abs_err']:.3g} bit-equal to the emulation; "
+            f"ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
+            f"host_ms={r['host_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+            f"bound_share={r['bound_share']:.4f} TB/s={r['tb_per_s']:.3f} "
+            f"launch_floor_ms={r['launch_floor_ms']:.4f}")
+        log(f"  {name} {label} variants (device ms, shipped bits): " +
+            " ".join(f"{v}={ms:.4f}"
+                     for v, ms in r["variant_kernel_ms"].items()))
+    if label == "main":
+        for name in rows:
+            rows[name]["host_us"] = stump_host_work(
+                args, name == "stump_vote_fp_batched")
+            log(f"  {name} host_us(median[min,max])=" + ",".join(
+                f"{k}:{v['median']:.2f}[{v['min']:.2f},{v['max']:.2f}]"
+                for k, v in rows[name]["host_us"].items()))
+    return rows
+
+
+def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {"stump_scan": check_scan(gen)}
-    for label, (B, T, N, pad) in (("main", (2, 300, 64, 20)),
-                                  ("large", (8, 1024, 4096, 24))):
-        xsel, thr, pol, alf = vote_inputs(gen, B, T, N, pad)
-        got = ops.stump_vote_batched(xsel, thr, pol, alf)
-        want = ref.stump_vote_batched_ref(xsel, thr, pol, alf)
-        gm, g0, g1 = ops.stump_vote_fp_batched(xsel, thr, pol, alf)
-        wm, w0, w1 = ref.stump_vote_fp_batched_ref(xsel, thr, pol, alf)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        err_fp = float((gm - wm).abs().max())
-        l1 = None if label == "main" else alf.abs().sum(1, keepdim=True)
-        if not (close(got, want, l1) and close(gm, wm, l1)):
-            raise AssertionError(f"votes {label}: max err {err} {err_fp}")
-        if not (torch.equal(g0, w0) and torch.equal(g1, w1)):
-            raise AssertionError(f"fingerprint lanes {label} not bit-equal")
-        vote_bytes = 4 * B * T * N + 3 * 4 * B * T + 4 * B * N
-        ops_vote = 6.0 * B * T * N               # sub, add, sign (2), 2 mul
-        b, by = bound_ms(vote_bytes, ops_vote)
-        results.setdefault("stump_vote_batched", {})[label] = dict(
-            shape=[B, T, N], max_abs_err=err,
-            ms=cuda_ms(lambda: ops.stump_vote_batched(xsel, thr, pol, alf),
-                       50),
-            kernel_ms=device_ms(
-                lambda: ops.stump_vote_batched(xsel, thr, pol, alf), 20,
-                "stump_vote_kernel<false>"),
-            plain_ms=cuda_ms(
-                lambda: ref.stump_vote_batched_ref(xsel, thr, pol, alf), 10),
-            bound_ms=b, bound_by=by, library_ms=None)
-        # + two uint32 lanes: xor, mul, xor each (32-bit integer ops)
-        b, by = bound_ms(vote_bytes + 2 * 4 * B * N,
-                         ops_vote + 6.0 * B * T * N)
-        results.setdefault("stump_vote_fp_batched", {})[label] = dict(
-            shape=[B, T, N], max_abs_err=err_fp, lanes_bit_equal=True,
-            ms=cuda_ms(
-                lambda: ops.stump_vote_fp_batched(xsel, thr, pol, alf), 50),
-            kernel_ms=device_ms(
-                lambda: ops.stump_vote_fp_batched(xsel, thr, pol, alf), 20,
-                "stump_vote_kernel<true>"),
-            plain_ms=cuda_ms(
-                lambda: ref.stump_vote_fp_batched_ref(xsel, thr, pol, alf),
-                3),
-            bound_ms=b, bound_by=by, library_ms=None)
-    for name, by_shape in results.items():
-        if name == "stump_scan":
-            continue                     # logged by check_scan
-        for label, r in by_shape.items():
-            log(f"kernel {name} {label} {r['shape']}: "
-                f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
-                f"kernel_ms={r['kernel_ms']:.4f} "
-                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-                f"({r['bound_by']})")
+    for label, (B, T, N, pad) in STUMP_CASES:
+        for name, r in check_stump_shape(gen, label, B, T, N, pad).items():
+            results.setdefault(name, {})[label] = r
+    stump_batch_invariance(gen)
     return results
+
+
+# Launcher variants of stump_vote.cu: (the line of ``launch`` that makes
+# the choice, its replacement).  "deep"/"stream" fix the loads in flight
+# (a whole chunk / half a chunk), "one_stage" one stage a round, "wide"
+# the 128-column tile at every shape.
+STUMP_VARIANT_LINES = {
+    "deep": ("  const bool deep = B * tiles(C) <= sms;",
+             "  const bool deep = true;"),
+    "stream": ("  const bool deep = B * tiles(C) <= sms;",
+               "  const bool deep = false;"),
+    "one_stage": ("  const bool two = C < 4 && deep && a.T > kStageRows;",
+                  "  const bool two = false;"),
+    "wide": ("  while (C > 1 && B * tiles(C / 2) <= sms) C /= 2;", ""),
+}
+_STUMP_VARIANTS = {}
+
+
+def stump_variants() -> dict:
+    """Copies of ``stump_vote.cu`` with one launcher choice fixed
+    (``STUMP_VARIANT_LINES``), built side by side into
+    ``build/stump_vote_variants`` (one ``nvcc`` each, all started
+    together) on first call and bound with ``ctypes``."""
+    import ctypes
+    from repro_torch.kernels import build
+    if _STUMP_VARIANTS:
+        return _STUMP_VARIANTS
+    src = (build.CSRC / "stump_vote.cu").read_text()
+    out_dir = ROOT / "build" / "stump_vote_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (line, repl) in STUMP_VARIANT_LINES.items():
+        if line not in src:
+            raise AssertionError(f"stump_vote.cu: the {name} choice moved")
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(src.replace(line, repl))
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", str(cu), "-o",
+             str(out_dir / f"{name}.so")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {name} stump vote:\n{out}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        for fn in ("stump_vote_launch", "stump_vote_fp_launch"):
+            getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+        _STUMP_VARIANTS[name] = lib
+    return _STUMP_VARIANTS
+
+
+def stump_variant_ms(args, want, want0, want1) -> dict:
+    """Each launcher variant's device ms at these inputs, both kernels,
+    each held to the shipped kernels' bits (margins and lanes)."""
+    x, th, p, a = args
+    B, T, N = x.shape
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    ptrs = (x.data_ptr(), th.data_ptr(), p.data_ptr(), a.data_ptr())
+    rows = {}
+    for name, lib in stump_variants().items():
+        out = torch.empty_like(want)
+        f0, f1 = torch.empty_like(want0), torch.empty_like(want1)
+
+        def plain():
+            if lib.stump_vote_launch(*ptrs, out.data_ptr(), B, T, N, stream):
+                raise RuntimeError(f"{name} stump vote launch failed")
+
+        def fp():
+            if lib.stump_vote_fp_launch(*ptrs, out.data_ptr(), f0.data_ptr(),
+                                        f1.data_ptr(), B, T, N, stream):
+                raise RuntimeError(f"{name} stump vote launch failed")
+        rows[name] = {}
+        for kname, call in (("stump_vote_batched", plain),
+                            ("stump_vote_fp_batched", fp)):
+            out.zero_()
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"{kname} {(B, T, N)}: the {name} "
+                                     f"variant differs from the shipped bits")
+            if kname == "stump_vote_fp_batched" and not (
+                    torch.equal(f0, want0) and torch.equal(f1, want1)):
+                raise AssertionError(f"{(B, T, N)}: the {name} variant's "
+                                     f"lanes differ")
+            rows[name][kname] = device_ms(call, 20, STUMP_KERNELS[kname])
+    return rows
+
+
+def stump_batch_invariance(gen):
+    """The same 3 columns, T 300 and 1024, alone (B 1, N 3: 32-column
+    tiles, two stages a round) and packed among others into
+    (8, T + 24, 4096) behind 24 zero-alpha padding rows whose thr and pol
+    hold NaN (every other row) and random values (128-column tiles, the
+    16-byte route, half a chunk a round), through both wrappers: equal bit
+    for bit, and to the CPU emulation of the order."""
+    from repro_torch.kernels import ops, ref
+    at = ((1, 0), (4, 2049), (7, 4095))          # (b, n) of each column
+    for T in (300, 1024):
+        x, th, p, a = vote_inputs(gen, 8, T + 24, 4096, 24)
+        th[:, T::2] = float("nan")
+        p[:, T::2] = float("nan")
+        ax, ath, ap, aa = vote_inputs(gen, 1, T, 3, 0)
+        for j, (b, n) in enumerate(at):
+            x[b, :T, n] = ax[0, :, j]
+            th[b, :T], p[b, :T], a[b, :T] = ath[0], ap[0], aa[0]
+        out = ops.stump_vote_batched(x, th, p, a)
+        out_fp = ops.stump_vote_fp_batched(x, th, p, a)[0]
+        got = {"alone": ops.stump_vote_batched(ax, ath, ap, aa)[0],
+               "alone fp": ops.stump_vote_fp_batched(ax, ath, ap, aa)[0][0],
+               "packed": torch.stack([out[b, n] for b, n in at]),
+               "packed fp": torch.stack([out_fp[b, n] for b, n in at])}
+        torch.cuda.synchronize()
+        emul = ref.stump_vote_in_kernel_order(
+            *(host(v) for v in (ax, ath, ap, aa)))[0]
+        ref_bits = emul.view(torch.int32)
+        for name, g in got.items():
+            if not torch.equal(g.cpu().view(torch.int32), ref_bits):
+                raise AssertionError(f"stump batch invariance T {T}: {name} "
+                                     f"{g.tolist()} != emulation "
+                                     f"{emul.tolist()}")
+        if not torch.isfinite(out).all():
+            raise AssertionError("stump batch invariance: NaN padding leaked")
+        log(f"stump vote batch invariance T {T}: {', '.join(got)} equal bit "
+            f"for bit to the CPU emulation ({emul.tolist()})")
+
+
+def stump_host_work(args, fp: bool) -> dict:
+    """A stump vote wrapper's host work at the path shape, cut into its
+    parts (:func:`host_us`): the wrapper, twice under two names (their
+    difference is the spread between identical variants), the device
+    check, the shape checks and ``_f32`` x4 (``ops._vote_args``), the
+    output allocation(s) as the wrapper makes them, the ``ctypes`` launch
+    alone on preallocated outputs, the stream, and ``ops._on_device``;
+    for the fp wrapper also its three outputs as three ``torch.empty``
+    and the whole wrapper as it was with them.  The wrapper's launches
+    count in ``ops.LAUNCHES``, which phase 4 zeroes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import load
+    x, th, p, a = args
+    B, T, N = x.shape
+    dev = x.device
+    lib = load()
+    stream = ops._stream(x)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    f0 = torch.empty((B, N), dtype=torch.int32, device=dev)
+    f1 = torch.empty((B, N), dtype=torch.int32, device=dev)
+    ptrs = (x.data_ptr(), th.data_ptr(), p.data_ptr(), a.data_ptr())
+    if fp:
+        wrapper = lambda: ops.stump_vote_fp_batched(*args)   # noqa: E731
+        launch = lambda: lib.stump_vote_fp_launch(           # noqa: E731
+            *ptrs, out.data_ptr(), f0.data_ptr(), f1.data_ptr(), B, T, N,
+            stream)
+        alloc = lambda: ops._fp_outputs(B, N, dev)          # noqa: E731
+    else:
+        wrapper = lambda: ops.stump_vote_batched(*args)      # noqa: E731
+        launch = lambda: lib.stump_vote_launch(              # noqa: E731
+            *ptrs, out.data_ptr(), B, T, N, stream)
+        alloc = lambda: torch.empty((B, N), device=dev)      # noqa: E731
+
+    def on_device():
+        with ops._on_device(x):
+            pass
+    variants = {"wrapper": wrapper, "wrapper_again": wrapper,
+                "on_cpu": lambda: ops._on_cpu(*args),
+                "checks": lambda: ops._vote_args(*args), "alloc": alloc,
+                "launch": launch, "stream": lambda: ops._stream(x),
+                "on_device": on_device}
+    if fp:
+        three_empty = lambda: [                              # noqa: E731
+            torch.empty((B, N), dtype=d, device=dev)
+            for d in (torch.float32, torch.int32, torch.int32)]
+
+        def wrapper_before():
+            """The fp wrapper as it was: three ``torch.empty``."""
+            if ops._on_cpu(*args):
+                raise AssertionError("stump inputs are on the CPU")
+            _, _, _, xs, ts, ps, als = ops._vote_args(*args)
+            o, g0, g1 = three_empty()
+            with ops._on_device(xs):
+                ops._launch("stump_vote_fp_batched",
+                            load().stump_vote_fp_launch, xs.data_ptr(),
+                            ts.data_ptr(), ps.data_ptr(), als.data_ptr(),
+                            o.data_ptr(), g0.data_ptr(), g1.data_ptr(),
+                            B, T, N, ops._stream(xs))
+            return o, g0, g1
+        variants.update(three_empty=three_empty,
+                        wrapper_before=wrapper_before)
+    return host_us(variants)
 
 
 def sm_clock_mhz() -> float:
@@ -1102,7 +1363,32 @@ def train(registry):
 
 
 # ------------------------------------------------------------ phase 5
+def recording_stump_shapes():
+    """Wrap the two stump vote wrappers in ``ops`` so that each call
+    records its (B, T, N); returns the counts (kernel -> Counter of
+    shapes) and a function that restores the wrappers."""
+    from collections import Counter
+    from repro_torch.kernels import ops
+    shapes = {name: Counter() for name in STUMP_KERNELS}
+    saved = {name: getattr(ops, name) for name in STUMP_KERNELS}
+
+    def wrap(name, fn):
+        def call(xsel, *rest):
+            shapes[name][tuple(xsel.shape)] += 1
+            return fn(xsel, *rest)
+        return call
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    return shapes, restore
+
+
 def serve(registry, datas):
+    """Phase 5; returns the stump votes' launch shapes (kernel -> Counter
+    of (B, T, N))."""
     from repro_torch.kernels.ops import KernelPolicy
     from repro_torch.serve import (BatchConfig, BatchEvaluator,
                                    EnsembleServer, ResultCache)
@@ -1134,17 +1420,21 @@ def serve(registry, datas):
         sent.append((t, fresh[t] % len(datas[t]["test"][1])))
         fresh[t] += 1
     responses = []
-    t0 = time.perf_counter()
-    for tenant, row in sent:
-        x = datas[tenant]["test"][0][row]
-        accepted, done = server.submit(tenant, x,
-                                       now=time.perf_counter() - t0)
-        if not accepted:
-            raise AssertionError("request rejected")
-        responses += done
-    responses += server.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    shapes, restore = recording_stump_shapes()
+    try:
+        t0 = time.perf_counter()
+        for tenant, row in sent:
+            x = datas[tenant]["test"][0][row]
+            accepted, done = server.submit(tenant, x,
+                                           now=time.perf_counter() - t0)
+            if not accepted:
+                raise AssertionError("request rejected")
+            responses += done
+        responses += server.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
     if len(responses) != len(sent):
         raise AssertionError(f"{len(responses)} responses for {len(sent)}")
     correct = 0
@@ -1186,6 +1476,28 @@ def serve(registry, datas):
                              f"rtol/atol {TOL} (max {worst})")
     if fp_hits != cpu_fp_hits or fp_hits <= 0:
         raise AssertionError(f"fp_hits cuda {fp_hits} cpu {cpu_fp_hits}")
+    for name, counts in shapes.items():
+        log(f"serve: {name} launch shapes (B, T, N): " + ", ".join(
+            f"{shape} x{n}" for shape, n in counts.most_common()))
+    return shapes
+
+
+def check_stump_path_shape(shapes) -> dict:
+    """Phase 3's stump measurements (:func:`check_stump_shape`) at the
+    serving path's commonest launch shape over both kernels, on random
+    inputs without padding rows."""
+    from collections import Counter
+    total = Counter()
+    for counts in shapes.values():
+        total.update(counts)
+    (B, T, N), n = total.most_common(1)[0]
+    log(f"stump votes at the path's commonest shape {(B, T, N)} "
+        f"({n} of {sum(total.values())} launches)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = check_stump_shape(gen, "path", B, T, N, 0)
+    for r in rows.values():
+        r["path_launches"] = n
+    return rows
 
 
 # ------------------------------------------------------------ phase 6
@@ -2217,9 +2529,14 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    entry = ""
     for line in build.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line:
+            spills = "spill" in line and " 0 bytes spill stores" not in line
+            log(f"  ptxas: {line.strip()}"
+                + (f" in {entry}" if spills else ""))
 
     kernel_results = check_kernels()
     kernel_results.update(check_generic_kernels())
@@ -2230,7 +2547,7 @@ def main() -> int:
     registry = EnsembleRegistry()
     ops.reset_launches()
     datas, fits = train(registry)
-    serve(registry, datas)
+    stump_shapes = serve(registry, datas)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     log(f"launches on the main path: {launches}; fits={fits}")
@@ -2240,6 +2557,12 @@ def main() -> int:
     for name in ("stump_scan", "stump_vote_batched", "stump_vote_fp_batched"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
+    for name, counts in stump_shapes.items():
+        if sum(counts.values()) != launches[name]:
+            raise AssertionError(f"{name}: {sum(counts.values())} shapes "
+                                 f"recorded for {launches[name]} launches")
+    for name, r in check_stump_path_shape(stump_shapes).items():
+        kernel_results[name]["path"] = r
     profile_main_path(registry, datas)
 
     # the fleet path: counts zeroed just before it and read just after

@@ -49,10 +49,10 @@
 //   over zero margins add exactly zero.
 // - Arithmetic: the multiply and the add are rounded separately
 //   (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain version
-//   and the CPU emulation in tests/test_torch_kernels.py compute them.
+//   and the CPU emulation `ref.vote_in_kernel_order` compute them.
 // - Blocks are flat over gridDim.x (gridDim.y stops at 65,535), offsets
 //   in size_t.  kWarps and kRows are mirrored by the CPU emulation of the
-//   order in tests/test_torch_kernels.py (VOTE_ROWS, VOTE_WARPS).
+//   order in `kernels/ref.py` (VOTE_ROWS, VOTE_WARPS).
 #include <cuda_runtime.h>
 
 #include <climits>

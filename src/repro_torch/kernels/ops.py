@@ -239,12 +239,26 @@ def _vote_args(xsel, thr, pol, alphas):
             _f32("alphas", alphas))
 
 
+def _fp_outputs(B: int, N: int, dev):
+    """:func:`stump_vote_fp_batched`'s outputs on ``dev``: the (B,N) f32
+    margins and the two (B,N) int32 lanes, one allocation seen three ways
+    (one ``torch.empty`` a call, not three)."""
+    out, f0, f1 = torch.empty((3, B, N), dtype=torch.int32,
+                              device=dev).unbind(0)
+    return out.view(F32), f0, f1
+
+
 def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
                        pol: torch.Tensor, alphas: torch.Tensor
                        ) -> torch.Tensor:
     """Fused stump margin + weighted vote for packed serving batches:
     xsel (B,T,N), thr/pol/alphas (B,T) -> (B,N) f32.  Zero-alpha padding
-    rows contribute nothing whatever thr/pol padding holds."""
+    rows contribute nothing whatever thr/pol padding holds.
+
+    On the card the sum has the generic votes' fixed order
+    (``csrc/stump_vote.cu``; :func:`ref.stump_vote_in_kernel_order`
+    emulates it): a column's result has the same bits whatever else
+    shares the batch, and :func:`stump_vote_fp_batched` gives the same."""
     if _on_cpu(xsel, thr, pol, alphas):
         return ref.stump_vote_batched_ref(xsel, thr, pol, alphas)
     B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
@@ -268,10 +282,7 @@ def stump_vote_fp_batched(xsel: torch.Tensor, thr: torch.Tensor,
     if _on_cpu(xsel, thr, pol, alphas):
         return ref.stump_vote_fp_batched_ref(xsel, thr, pol, alphas)
     B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
-    dev = xsel.device
-    out = torch.empty((B, N), dtype=F32, device=dev)
-    f0 = torch.empty((B, N), dtype=torch.int32, device=dev)
-    f1 = torch.empty((B, N), dtype=torch.int32, device=dev)
+    out, f0, f1 = _fp_outputs(B, N, xsel.device)
     if B * N == 0:
         return out, f0, f1
     from repro_torch.kernels.build import load

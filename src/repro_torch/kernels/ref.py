@@ -161,6 +161,60 @@ def stump_vote_batched_ref(xsel: torch.Tensor, thr: torch.Tensor,
     return torch.einsum("bt,btn->bn", alphas.to(F32), m)
 
 
+# The vote kernels' order (csrc/ensemble_vote.cu, csrc/stump_vote.cu):
+# chunks of VOTE_ROWS rows (kRows there), VOTE_WARPS chunks a stage (kWarps)
+VOTE_ROWS, VOTE_WARPS = 32, 8
+VOTE_STAGE_ROWS = VOTE_ROWS * VOTE_WARPS
+
+
+def vote_in_kernel_order(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The vote kernels' sum, emulated in f32: (B,T,N), (B,T) -> (B,N).
+    Used by the tests and ``chip_smoke.py`` only.
+
+    Chunks of ``VOTE_ROWS`` rows summed in t order from zero, a stage's
+    ``VOTE_WARPS`` chunk sums added as a pairwise tree, the stage partials
+    added in order from zero; every multiply and add rounded on its own
+    (no fused multiply-add)."""
+    m, a = m.to(F32), a.to(F32)
+    B, T, N = m.shape
+    acc = torch.zeros((B, N), dtype=F32, device=m.device)
+    for s0 in range(0, T, VOTE_STAGE_ROWS):
+        chunks = []
+        for t0 in range(s0, s0 + VOTE_STAGE_ROWS, VOTE_ROWS):
+            c = torch.zeros((B, N), dtype=F32, device=m.device)
+            for tt in range(t0, min(t0 + VOTE_ROWS, T)):
+                c = c + a[:, tt, None] * m[:, tt]
+            chunks.append(c)
+        while len(chunks) > 1:
+            chunks = [chunks[i] + chunks[i + 1]
+                      for i in range(0, len(chunks), 2)]
+        acc = acc + chunks[0]
+    return acc
+
+
+def stump_margins(xsel: torch.Tensor, thr: torch.Tensor, pol: torch.Tensor,
+                  alphas: torch.Tensor) -> torch.Tensor:
+    """The stump vote kernels' margins, (B,T,N) f32:
+    pol * sign((xsel - thr) + 1e-12) on the rows with alpha != 0, 0 on the
+    others whatever their thr, pol or xsel hold.  The sign is the kernels'
+    (a NaN difference counts 0)."""
+    d = xsel.to(F32) - thr.to(F32)[:, :, None] + 1e-12
+    s = (d > 0).to(F32) - (d < 0).to(F32)
+    m = pol.to(F32)[:, :, None] * s
+    return torch.where((alphas.to(F32) != 0.0)[:, :, None], m,
+                       torch.zeros_like(m))
+
+
+def stump_vote_in_kernel_order(xsel: torch.Tensor, thr: torch.Tensor,
+                               pol: torch.Tensor, alphas: torch.Tensor
+                               ) -> torch.Tensor:
+    """``csrc/stump_vote.cu``'s margins, emulated in f32: the generic
+    votes' order (:func:`vote_in_kernel_order`) over
+    :func:`stump_margins`.  Used by the tests and ``chip_smoke.py`` only."""
+    return vote_in_kernel_order(stump_margins(xsel, thr, pol, alphas),
+                                alphas)
+
+
 # Feature-fingerprint mixing constants, shared verbatim with the fused
 # CUDA kernel (kernels/csrc/stump_vote.cu) and the JAX package, so every
 # implementation folds the same bits: two independent 32-bit lanes give a

@@ -494,34 +494,6 @@ def test_ensemble_vote_kernels_match_plain_on_card(card, B, T, N, pad):
                                       a[:, :T - pad].contiguous()), got)
 
 
-# csrc/ensemble_vote.cu's order: chunks of VOTE_ROWS rows (kRows there),
-# VOTE_WARPS chunks a stage (kWarps)
-VOTE_ROWS, VOTE_WARPS = 32, 8
-VOTE_STAGE_ROWS = VOTE_ROWS * VOTE_WARPS
-
-
-def vote_in_kernel_order(m: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """``csrc/ensemble_vote.cu``'s sum, emulated in f32 with torch:
-    (B,T,N), (B,T) -> (B,N).  Chunks of ``VOTE_ROWS`` rows summed in t
-    order from zero, a stage's ``VOTE_WARPS`` chunk sums added as a
-    pairwise tree, the stage partials added in order from zero; every
-    multiply and add rounded on its own (no fused multiply-add)."""
-    B, T, N = m.shape
-    acc = torch.zeros((B, N), dtype=torch.float32)
-    for s0 in range(0, T, VOTE_STAGE_ROWS):
-        chunks = []
-        for t0 in range(s0, s0 + VOTE_STAGE_ROWS, VOTE_ROWS):
-            c = torch.zeros((B, N), dtype=torch.float32)
-            for tt in range(t0, min(t0 + VOTE_ROWS, T)):
-                c = c + a[:, tt, None] * m[:, tt]
-            chunks.append(c)
-        while len(chunks) > 1:
-            chunks = [chunks[i] + chunks[i + 1]
-                      for i in range(0, len(chunks), 2)]
-        acc = acc + chunks[0]
-    return acc
-
-
 def bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32)
 
@@ -538,7 +510,7 @@ def test_kernel_order_is_as_accurate_as_the_sequential_sum():
     a = rng.randn(B, T).astype(np.float32)
     exact = np.einsum("bt,btn->bn", a.astype(np.float64), m.astype(np.float64))
     slack = 1e-5 * (1.0 + np.abs(a).astype(np.float64).sum(1))[:, None]
-    got = vote_in_kernel_order(*t(m, a)).numpy().astype(np.float64)
+    got = ref.vote_in_kernel_order(*t(m, a)).numpy().astype(np.float64)
     seq = np.zeros((B, N), np.float32)
     for tt in range(T):
         seq = seq + a[:, tt, None] * m[:, tt]
@@ -546,7 +518,7 @@ def test_kernel_order_is_as_accurate_as_the_sequential_sum():
     assert (err <= slack).all() and (err_seq <= slack).all()
     assert err.max() <= 2.0 * err_seq.max(), (err.max(), err_seq.max())
     # and the emulation is the plain version's function
-    torch.testing.assert_close(vote_in_kernel_order(*t(m, a)),
+    torch.testing.assert_close(ref.vote_in_kernel_order(*t(m, a)),
                                ref.ensemble_vote_batched_ref(*t(m, a)),
                                rtol=0, atol=float(slack.max()))
 
@@ -558,15 +530,15 @@ def test_kernel_order_is_batch_invariant(T):
     within rtol/atol 1e-5, and zero padding rows in T and zero columns in
     N change no column's bits."""
     m, a = generic_vote_case(T, 2, T, 5, 0)
-    got = vote_in_kernel_order(*t(m, a))
+    got = ref.vote_in_kernel_order(*t(m, a))
     torch.testing.assert_close(got, ref.ensemble_vote_batched_ref(*t(m, a)),
                                **TOL)
     pad = np.zeros((3, T + 40, 9), np.float32)      # 40 rows, 4 columns
     pad[1:, :T, 2:7] = m
     pad_a = np.zeros((3, T + 40), np.float32)
     pad_a[1:, :T] = a
-    assert torch.equal(bits(vote_in_kernel_order(*t(pad, pad_a))[1:, 2:7]),
-                       bits(got))
+    packed = ref.vote_in_kernel_order(*t(pad, pad_a))
+    assert torch.equal(bits(packed[1:, 2:7]), bits(got))
 
 
 @pytest.mark.cuda
@@ -580,7 +552,7 @@ def test_kernel_order_is_batch_invariant(T):
     (300, 600, 130), (200, 257, 67)])
 def test_ensemble_vote_kernel_is_the_fixed_order_on_card(card, B, T, N):
     m, a = t(*generic_vote_case(B + T + N, B, T, N, 2))
-    want = vote_in_kernel_order(m, a)
+    want = ref.vote_in_kernel_order(m, a)
     m, a = m.to(card), a.to(card)
     got = ops.ensemble_vote_batched(m, a)
     # 1e-5 of 1 + sum |alpha|: a long sum that cancels keeps the rounding
@@ -618,8 +590,170 @@ def test_ensemble_vote_kernel_is_batch_invariant_on_card(card, T):
     assert torch.equal(bits(ops.ensemble_vote(alone_m[0], alone_a[0])),
                        bits(alone))
     assert torch.equal(bits(alone.cpu()),
-                       bits(vote_in_kernel_order(*t(
+                       bits(ref.vote_in_kernel_order(*t(
                            alone_m.cpu().numpy(), alone_a.cpu().numpy()))[0]))
+
+
+# ------------------------------------------------------------ stump votes
+def stump_case(seed, B, T, N, pad_t):
+    """A stump batch whose last ``pad_t`` rows are zero-alpha padding:
+    thr and pol NaN on every other padding row, random on the rest."""
+    xsel, thr, pol, alphas = vote_case(seed, B, T, N, pad_t)
+    if pad_t:
+        thr[:, T - pad_t::2] = np.nan
+        pol[:, T - pad_t::2] = np.nan
+    return xsel, thr, pol, alphas
+
+
+@pytest.mark.parametrize("B,T,N,pad", [(1, 1, 1, 0), (2, 7, 5, 2),
+                                       (3, 300, 64, 20), (2, 33, 129, 0),
+                                       (2, 255, 17, 0), (2, 256, 17, 3),
+                                       (2, 257, 17, 1)])
+def test_stump_vote_order_matches_plain_and_jax(jax_ref, B, T, N, pad):
+    """The stump kernels' order (the generic votes' order over the stump
+    margins), emulated on the CPU: within rtol/atol 1e-5 of the plain
+    version and of the JAX package's, at the vote shapes and at T on both
+    sides of a stage (256 rows)."""
+    jnp, jref = jax_ref
+    args = vote_case(B * T + N, B, T, N, pad)
+    got = ref.stump_vote_in_kernel_order(*t(*args))
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.stump_vote_batched_ref(*t(*args)),
+                               **TOL)
+    want = np.asarray(jref.stump_vote_batched_ref(*map(jnp.asarray, args)))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 255, 256, 257, 300, 513])
+def test_stump_vote_order_is_batch_invariant(T):
+    """Three columns alone and packed among others, behind 40 zero-alpha
+    padding rows whose thr and pol hold NaN and random values, in a
+    batch of other tenants: the same bits."""
+    xsel, thr, pol, alphas = stump_case(T, 1, T, 3, 0)
+    alone = ref.stump_vote_in_kernel_order(*t(xsel, thr, pol, alphas))
+    px, pt, pp, pa = stump_case(T + 1, 3, T + 40, 9, 40)
+    px[1, :T, 2:5] = xsel[0]
+    pt[1, :T], pp[1, :T], pa[1, :T] = thr[0], pol[0], alphas[0]
+    assert np.isnan(pt[1, T:]).any() and np.isnan(pp[1, T:]).any()
+    packed = ref.stump_vote_in_kernel_order(*t(px, pt, pp, pa))
+    assert torch.isfinite(packed).all()
+    assert torch.equal(bits(packed[1, 2:5]), bits(alone[0]))
+
+
+def test_one_product_a_row_is_the_two_products_bit_for_bit():
+    """fl(a * fl(p * s)) == s * fl(a * p) in f32 for s in {-1, 0, 1}, over
+    random values, +-0, subnormal and near-overflow alphas: what lets the
+    kernel form alpha * pol once a row and select +-ap or 0 a cell.  A
+    chunk sum starts at +0 and so is never -0: adding the select's +0
+    where the product is -0 gives the same bits."""
+    rng = np.random.RandomState(18)
+    f32 = np.float32
+    tiny = np.finfo(f32).tiny
+    a = np.concatenate([
+        rng.rand(4000).astype(f32), -rng.rand(1000).astype(f32),
+        np.array([0.0, -0.0, tiny, -tiny, tiny / 2, tiny / 1024,
+                  np.nextafter(f32(0), f32(1))], f32),
+        (rng.rand(500) * tiny).astype(f32),                 # subnormal
+        (rng.rand(500) * 0.5 + 0.5).astype(f32) * np.finfo(f32).max])
+    # polarities: +-1, +-0, and values of magnitude below 1 (no overflow)
+    p = np.concatenate([np.array([1.0, -1.0, 0.0, -0.0], f32),
+                        (rng.rand(64) * 2 - 1).astype(f32),
+                        (rng.rand(16) * tiny).astype(f32)])
+    A, P = np.meshgrid(a, p, indexing="ij")
+    ap = A * P
+    assert ap.dtype == np.float32 and np.isfinite(ap).all()
+    c = np.concatenate([rng.randn(A.size // 2).astype(f32),
+                        np.zeros(A.size - A.size // 2, f32)]).reshape(A.shape)
+    for s in (f32(-1), f32(0), f32(1)):
+        two = A * (P * s)
+        one = s * ap
+        np.testing.assert_array_equal(two.view(np.int32), one.view(np.int32))
+        sel = ap if s > 0 else (-ap if s < 0 else np.zeros_like(ap))
+        np.testing.assert_array_equal((c + two).view(np.int32),
+                                      (c + sel).view(np.int32))
+
+
+@pytest.mark.parametrize("source", ["ensemble_vote.cu", "stump_vote.cu"])
+def test_vote_order_constants_match_the_cuda_sources(source):
+    """The emulation's chunk and stage are each vote source's kRows and
+    kWarps: an emulation of another order would not hold the card."""
+    src = (Path(ops.__file__).parent / "csrc" / source).read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (consts["kRows"], consts["kWarps"]) == (ref.VOTE_ROWS,
+                                                   ref.VOTE_WARPS)
+    assert ref.VOTE_STAGE_ROWS == ref.VOTE_ROWS * ref.VOTE_WARPS
+
+
+# the launcher's routes on a 132-SM card: tiles of 32, 64 or 128 columns
+# (the narrowest that keeps the grid within one block an SM), one or two
+# stages a round, a whole chunk or half a chunk of loads in flight
+STUMP_ORDER_SHAPES = [
+    (1, 1, 1),
+    # the serving shapes: 32-column tiles, two stages a round; N % 4 in
+    # {0, 1, 3}
+    (2, 300, 64), (2, 300, 61), (2, 300, 67),
+    # T across a stage boundary
+    (3, 255, 130), (3, 256, 130), (3, 257, 130), (3, 37, 1000),
+    # two stages a round over 9 stages (the last round one stage)
+    (1, 1024, 256), (1, 2100, 64),
+    # 64-column tiles (two stages a round, one), 128-column tiles within
+    # one block an SM (16-byte and 4-byte loads)
+    (1, 1024, 8192), (1, 200, 8192), (1, 300, 16384), (1, 300, 16383),
+    # grids of more tiles than SMs: half a chunk in flight a round
+    (8, 1024, 4096), (70_000, 3, 4), (300, 600, 130), (200, 257, 67)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N", STUMP_ORDER_SHAPES)
+def test_stump_vote_kernels_are_the_fixed_order_on_card(card, B, T, N):
+    """Both stump kernels bit-equal to the CPU emulation of their order
+    and to each other, the lanes bit-equal to the plain version's, with
+    zero-alpha padding rows of NaN thr and pol; two calls the same bits."""
+    pad = min(T - 1, 3)
+    x, th, p, a = t(*stump_case(B + T + N, B, T, N, pad))
+    want = ref.stump_vote_in_kernel_order(x, th, p, a)
+    w0, w1 = ref._fp_lanes(x, a)
+    args = [v.to(card) for v in (x, th, p, a)]
+    got = ops.stump_vote_batched(*args)
+    gm, g0, g1 = ops.stump_vote_fp_batched(*args)
+    again = ops.stump_vote_batched(*args)
+    am, a0, a1 = ops.stump_vote_fp_batched(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(got.cpu()), bits(want))
+    assert torch.equal(bits(gm), bits(got))
+    assert torch.equal(g0.cpu(), w0) and torch.equal(g1.cpu(), w1)
+    assert torch.equal(bits(again), bits(got))
+    assert torch.equal(bits(am), bits(got))
+    assert torch.equal(a0, g0) and torch.equal(a1, g1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [300, 1024])
+def test_stump_vote_kernels_are_batch_invariant_on_card(card, T):
+    """Three columns alone (B 1, N 3: a 32-column tile, two stages a
+    round) and packed among others into (8, T + 24, 4096) behind 24
+    zero-alpha padding rows of NaN and random thr and pol (128-column
+    tiles, the 16-byte route, more tiles than SMs: one stage and half a
+    chunk a round), through both kernels: the same bits, and the CPU
+    emulation's."""
+    xsel, thr, pol, alphas = stump_case(T, 1, T, 3, 0)
+    px, pt, pp, pa = stump_case(T + 1, 8, T + 24, 4096, 24)
+    at = [(0, 0), (4, 2049), (7, 4095)]             # (b, n) of each column
+    for j, (b, n) in enumerate(at):
+        px[b, :T, n] = xsel[0, :, j]
+        pt[b, :T], pp[b, :T], pa[b, :T] = thr[0], pol[0], alphas[0]
+    alone_args = [v.to(card) for v in t(xsel, thr, pol, alphas)]
+    packed_args = [v.to(card) for v in t(px, pt, pp, pa)]
+    alone = ops.stump_vote_batched(*alone_args)[0]
+    alone_fp = ops.stump_vote_fp_batched(*alone_args)[0][0]
+    packed = ops.stump_vote_batched(*packed_args)
+    packed_fp = ops.stump_vote_fp_batched(*packed_args)[0]
+    want = ref.stump_vote_in_kernel_order(*t(xsel, thr, pol, alphas))[0]
+    for got in (alone_fp, torch.stack([packed[b, n] for b, n in at]),
+                torch.stack([packed_fp[b, n] for b, n in at])):
+        assert torch.equal(bits(got), bits(alone))
+    assert torch.equal(bits(alone.cpu()), bits(want))
 
 
 @pytest.mark.cuda
