@@ -26,7 +26,12 @@ nonzero (there is no CPU fall-back):
    to the plain version's, each launcher variant (a copy of
    ``stump_vote.cu`` with one choice fixed, built into ``build/``) timed
    and held to the shipped bits, columns alone and packed bit-equal, and
-   the wrappers' host work by part;
+   the wrappers' host work by part; ``dist_update`` at the kernel API
+   path's N and a large N with every device operation of a call traced
+   (one kernel), Z and D' bit-equal to the CPU emulation of its order
+   (``ref.dist_update_in_kernel_order``) at alpha 0, the route
+   ``ops.dist_split`` does not take timed beside it, and the wrapper's
+   host work by part;
 4. train: edge_vision at full size in both modes and iot at full size,
    enhanced, all on the card, publishing into one registry; each run is
    then repeated on the CPU in lockstep, handed the card's stump at every
@@ -940,7 +945,8 @@ def check_generic_kernels():
     and ``dist_update`` at ``benchmarks/kernel_bench.py``'s shapes and
     large ones, each against its plain version on the card, with
     ``library_ms`` the one PyTorch call that computes the same function
-    (``dist_update`` has none) and, for the votes, its device time
+    (``dist_update`` has none; :func:`check_dist_update` has its row) and,
+    for the votes, its device time
     (``library_kernel_ms``), the achieved TB/s, the share of the bytes
     bound, the host work before the launch (event - device) and, at the
     path shapes, its parts (:func:`vote_host_work`), two calls bit-equal,
@@ -1000,41 +1006,12 @@ def check_generic_kernels():
     vote_batch_invariance(gen)
     results["ensemble_vote_batched"]["main"]["depth_kernel_ms"] = \
         vote_depths(gen)
-    for label, N in (("main", 8192), ("large", 4_194_304)):
-        # kernel_bench's inputs: a softmax distribution, sign labels and
-        # margins, alpha 0.7
-        D = torch.softmax(torch.randn((N,), generator=gen, device=dev), 0)
-        y = torch.sign(torch.randn((N,), generator=gen, device=dev))
-        h = torch.sign(torch.randn((N,), generator=gen, device=dev))
-        alpha = torch.tensor(0.7, device=dev)
-        got, z = ops.dist_update(alpha, D, y, h)
-        want, wz = ref.dist_update_ref(alpha, D, y, h)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        z_rel = float((z - wz).abs() / wz)
-        # w to 2 ulp: the plain version's w over the kernel's Z, against D'
-        w_ulps = ulps(got, (D * torch.exp(-alpha * y * h)) / (z + 1e-30))
-        if not (err <= 1e-6 and z_rel <= 1e-6 and w_ulps <= 2):
-            raise AssertionError(f"dist_update {label}: D' err {err}, Z rel "
-                                 f"{z_rel}, w {w_ulps} ulp")
-        # D, y, h read and D' written (16 bytes a sample); 2 multiplies,
-        # an exp, an add into Z and a divide a sample
-        b, by = bound_ms(16.0 * N + 8, 5.0 * N)
-        results.setdefault("dist_update", {})[label] = dict(
-            shape=[N], max_abs_err=err, z_rel_err=z_rel, w_ulps=w_ulps,
-            ms=cuda_ms(lambda: ops.dist_update(alpha, D, y, h), 50),
-            kernel_ms=device_ms(
-                lambda: ops.dist_update(alpha, D, y, h), 20,
-                ("dist_weights_kernel", "dist_total_kernel",
-                 "dist_normalize_kernel")),
-            plain_ms=cuda_ms(lambda: ref.dist_update_ref(alpha, D, y, h),
-                             20),
-            bound_ms=b, bound_by=by, library_ms=None)
+    results["dist_update"] = check_dist_update(gen)
     for name, by_shape in results.items():
         for label, r in by_shape.items():
             lib = r["library_ms"]
             if name == "dist_update":
-                extra = f" z_rel_err={r['z_rel_err']:.3g} w_ulps={r['w_ulps']}"
+                extra = dist_extra(r)
             else:
                 extra = (f" library_kernel_ms={r['library_kernel_ms']:.4f}"
                          f" host_ms={r['host_ms']:.4f}"
@@ -1051,6 +1028,213 @@ def check_generic_kernels():
                 f"({r['bound_by']}) library_ms="
                 + ("none" if lib is None else f"{lib:.4f}") + extra)
     return results
+
+
+# ------------------------------------------------------------ dist_update
+DIST_KERNEL = "dist_update_kernel"
+
+
+def device_ops(fn, reps: int) -> dict:
+    """Every device operation of ``reps`` calls of ``fn`` (kernels, fills,
+    copies), traced by torch.profiler: name -> operations traced.  The
+    profiler now and then drops one from a trace (:func:`device_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            counts[evt.name] = counts.get(evt.name, 0) + 1
+    return counts
+
+
+def dist_inputs(gen, N):
+    """``benchmarks/kernel_bench.py``'s inputs: a softmax distribution,
+    sign labels and margins."""
+    D = torch.softmax(torch.randn((N,), generator=gen, device="cuda"), 0)
+    y = torch.sign(torch.randn((N,), generator=gen, device="cuda"))
+    h = torch.sign(torch.randn((N,), generator=gen, device="cuda"))
+    return D, y, h
+
+
+def dist_not_taken(N, split, sms):
+    """The route :func:`ops.dist_split` does not take at N: a cooperative
+    grid where it takes the cluster, else the grid computing every w again
+    after the barrier (nothing kept on chip)."""
+    from repro_torch.kernels import ops, ref
+    if not split.cluster:
+        return "grid, w computed again", split._replace(held=0)
+    nv = -(-N // 4)
+    tile = -(-nv // sms)
+    threads = min(ops.DIST_GRID_THREADS, max(32, 1 << (tile - 1).bit_length()))
+    return "grid", ref.DistSplit(False, -(-nv // tile), threads, tile, tile)
+
+
+def dist_host_work(D, y, h) -> dict:
+    """The ``dist_update`` wrapper's host work, cut into its parts
+    (:func:`host_us`): the wrapper with alpha a number, twice under two
+    names (their difference is the spread between identical variants), and
+    with alpha a CUDA tensor; the device and shape checks and ``_f32`` x3,
+    alpha as the launcher takes it, the split, the one allocation of D', Z
+    and the block sums, the import and ``load()``, the stream, the device
+    context, and the ``ctypes`` launch on preallocated outputs.  Beside
+    them what the wrapper before did and no longer does: alpha copied to
+    the card (``torch.as_tensor``, a blocking copy from pageable memory)
+    and Z zeroed (``torch.zeros``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import load
+    N = D.shape[0]
+    dev = D.get_device()
+    split = ops.dist_split(N, ops._sms(dev))
+    out, Z, parts = ops._dist_outputs(N, split, D.device)
+    fn = load().dist_update_launch
+    stream = ops._stream(D)
+    a_card = torch.tensor(0.7, device=D.device)
+    args = (None, 0.7, D.data_ptr(), y.data_ptr(), h.data_ptr(),
+            out.data_ptr(), Z.data_ptr(), parts, N, *split, stream)
+
+    def checks():
+        ops._on_cpu(D, y, h)
+        if D.dim() != 1 or y.shape != (N,) or h.shape != (N,):
+            raise ValueError("shapes")
+        ops._f32("D", D)
+        ops._f32("y", y)
+        ops._f32("h", h)
+
+    def import_load():
+        from repro_torch.kernels.build import load
+        return load().dist_update_launch
+
+    def on_device():
+        with ops._on_device(D):
+            pass
+
+    def launch():
+        if fn(*args) != 0:
+            raise RuntimeError("dist_update launch failed")
+
+    call = lambda: ops.dist_update(0.7, D, y, h)         # noqa: E731
+    return host_us({
+        "wrapper": call, "wrapper_again": call,
+        "wrapper_cuda_alpha": lambda: ops.dist_update(a_card, D, y, h),
+        "checks": checks, "alpha": lambda: ops._alpha_arg(0.7, D.device),
+        "split": lambda: ops.dist_split(N, ops._sms(dev)),
+        "alloc": lambda: ops._dist_outputs(N, split, D.device),
+        "import_load": import_load, "stream": lambda: ops._stream(D),
+        "on_device": on_device, "launch": launch,
+        "old_alpha_copy": lambda: torch.as_tensor(0.7, dtype=torch.float32,
+                                                  device=D.device),
+        "old_zeros": lambda: torch.zeros((), dtype=torch.float32,
+                                         device=D.device)}, rounds=9)
+
+
+def check_dist_update(gen) -> dict:
+    """Phase 3 for ``dist_update`` at the kernel API path's N = 8,192 and
+    at 4,194,304, alpha 0.7 as a number (as phase 9 passes it): D' within
+    1e-6 and Z within 1e-6 relative of the plain version, w within 2 ulp;
+    Z and D' bit-equal to ``ref.dist_update_in_kernel_order`` (the CPU
+    emulation of the kernel's order) at alpha = 0, where w is D on both;
+    two calls and alpha as a CUDA tensor bit-equal; every device operation
+    of a call traced (one kernel, no fill, no copy); the event and device
+    time, the TB/s and the share of the bytes bound; the route
+    :func:`ops.dist_split` does not take, forced through the private
+    launcher and timed; a same-bytes yardstick (``torch.addcmul``: 12
+    bytes read and 4 written a sample, not eq. 4); the plain version's
+    time; at the path shape the host work by part."""
+    from repro_torch.kernels import ops, ref
+    sms = ops._sms(0)
+    out = {}
+    for label, N in (("main", 8192), ("large", 4_194_304)):
+        D, y, h = dist_inputs(gen, N)
+        alpha = 0.7
+        split = ops.dist_split(N, sms)
+        call = lambda: ops.dist_update(alpha, D, y, h)     # noqa: E731
+        got, z = call()
+        want, wz = ref.dist_update_ref(alpha, D, y, h)
+        again, z2 = ops.dist_update(torch.tensor(alpha, device="cuda"), D,
+                                    y, h)
+        got0, z0 = ops.dist_update(0.0, D, y, h)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        z_rel = float((z - wz).abs() / wz)
+        a32 = torch.tensor(alpha, device="cuda")
+        w_ulps = ulps(got, (D * torch.exp(-a32 * y * h)) / (z + 1e-30))
+        want0, wz0 = ref.dist_update_in_kernel_order(0.0, D.cpu(), y.cpu(),
+                                                     h.cpu(), split)
+        bits_ok = (torch.equal(again.view(torch.int32), got.view(torch.int32))
+                   and torch.equal(z2.view(torch.int32), z.view(torch.int32))
+                   and torch.equal(z0.cpu().view(torch.int32),
+                                   wz0.view(torch.int32))
+                   and torch.equal(got0.cpu().view(torch.int32),
+                                   want0.view(torch.int32)))
+        if not (err <= 1e-6 and z_rel <= 1e-6 and w_ulps <= 2 and bits_ok):
+            raise AssertionError(f"dist_update {label}: D' err {err}, Z rel "
+                                 f"{z_rel}, w {w_ulps} ulp, bits {bits_ok}")
+        traced = device_ops(call, 20)       # one kernel a call, no other
+        if len(traced) != 1 or DIST_KERNEL not in next(iter(traced)) \
+                or not 19 <= sum(traced.values()) <= 20:
+            raise AssertionError(f"dist_update {label}: device operations "
+                                 f"of 20 calls {traced}")
+        # D, y, h read and D' written (16 bytes a sample, Z's 4 beside);
+        # 2 multiplies, an exp, an add into Z and a divide a sample
+        nbytes = 16.0 * N + 4
+        b, by = bound_ms(nbytes, 5.0 * N)
+        ms = cuda_ms(call, 50)
+        kernel_ms = device_ms(call, 20, None)
+        kernel_ms = (kernel_ms + device_ms(call, 20, None)) / 2
+        route, other = dist_not_taken(N, split, sms)
+        o_got, o_z = ops._dist_update_launch(alpha, D, y, h, other)
+        torch.cuda.synchronize()
+        o_err = float((o_got - want).abs().max())
+        o_rel = float((o_z - wz).abs() / wz)
+        if not (o_err <= 1e-6 and o_rel <= 1e-6):
+            raise AssertionError(f"dist_update {label} {route}: D' err "
+                                 f"{o_err}, Z rel {o_rel}")
+        if other._replace(held=split.held) == split and not (
+                torch.equal(o_got, got) and torch.equal(o_z, z)):
+            raise AssertionError(f"dist_update {label}: w computed again "
+                                 f"is not w kept, bit for bit")
+        o_ms = device_ms(lambda: ops._dist_update_launch(alpha, D, y, h,
+                                                         other), 20, None)
+        yard = torch.empty_like(D)
+        yard_ms = device_ms(lambda: torch.addcmul(D, y, h, out=yard), 20,
+                            None)
+        out[label] = dict(
+            shape=[N], split=list(split), max_abs_err=err, z_rel_err=z_rel,
+            w_ulps=w_ulps, ms=ms, kernel_ms=kernel_ms, host_ms=ms - kernel_ms,
+            device_ops_in_20_calls=traced,
+            tb_per_s=nbytes / kernel_ms / 1e9,
+            bound_share=b / kernel_ms,
+            not_taken=dict(route=route, split=list(other), kernel_ms=o_ms,
+                           max_abs_err=o_err, z_rel_err=o_rel),
+            addcmul_kernel_ms=yard_ms,
+            plain_ms=cuda_ms(lambda: ref.dist_update_ref(alpha, D, y, h), 20),
+            bound_ms=b, bound_by=by, library_ms=None)
+        if label == "main":
+            out[label]["host_us"] = dist_host_work(D, y, h)
+    return out
+
+
+def dist_extra(r) -> str:
+    """The ``dist_update`` row's fields beyond the common ones."""
+    nt = r["not_taken"]
+    extra = (f" z_rel_err={r['z_rel_err']:.3g} w_ulps={r['w_ulps']}"
+             f" split={r['split']}"
+             f" device_ops_in_20_calls={r['device_ops_in_20_calls']}"
+             f" host_ms={r['host_ms']:.4f} TB/s={r['tb_per_s']:.3f}"
+             f" bound_share={r['bound_share']:.3f}"
+             f" not_taken=({nt['route']} {nt['split']}"
+             f" kernel_ms={nt['kernel_ms']:.4f})"
+             f" addcmul_kernel_ms={r['addcmul_kernel_ms']:.4f}")
+    if "host_us" in r:
+        extra += " host_us(median[min,max])=" + ",".join(
+            f"{k}:{v['median']:.2f}[{v['min']:.2f},{v['max']:.2f}]"
+            for k, v in r["host_us"].items())
+    return extra
 
 
 # f32 at 2e-4 (the JAX package's flash tolerance, tests/test_kernels.py:83:

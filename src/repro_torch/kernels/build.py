@@ -29,8 +29,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
-# C argument types of every exported function; a launcher takes
-# (pointers..., ints and floats..., stream)
+# C argument types of every exported function, each returning an int (a
+# launcher its CUDA error); a launcher takes (pointers..., ints and
+# floats..., stream)
 SIGNATURES = {
     "stump_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P],
@@ -39,13 +40,11 @@ SIGNATURES = {
     "stump_vote_fp_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ensemble_vote_batched_launch": [_P, _P, _P, _L, _I, _I, _P],
     "ensemble_vote_launch": [_P, _P, _P, _I, _I, _P],
-    "dist_update_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
-    "dist_update_partials": [_L],
+    "dist_update_launch": [_P, _F, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                           _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P],
 }
-# launchers return their CUDA error as an int; these functions return others
-RESTYPES = {"dist_update_partials": _L}
 
 _LIB: Optional[ctypes.CDLL] = None
 ptxas_log = ""            # register/spill report of this process's build
@@ -115,6 +114,6 @@ def load() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = RESTYPES.get(name, ctypes.c_int)
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

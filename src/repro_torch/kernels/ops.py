@@ -345,34 +345,109 @@ def ensemble_vote(margins: torch.Tensor, alphas: torch.Tensor
     return out
 
 
+# csrc/dist_update.cu's constants: blocks of the one cluster (the portable
+# cluster size), threads a block at most, float4 a block keeps on chip
+DIST_CLUSTER = 8
+DIST_THREADS = 1024
+DIST_HELD = 14336                    # 224 KB of shared memory
+# threads a block on the grid route: one block of 512 an SM streamed
+# fastest on the H100 (1024 and 256 slower)
+DIST_GRID_THREADS = 512
+
+
+@functools.lru_cache(maxsize=1024)
+def dist_split(N: int, sms: int) -> ref.DistSplit:
+    """How :func:`dist_update` spreads N samples on a card of ``sms`` SMs
+    (see ``csrc/dist_update.cu`` and :class:`ref.DistSplit`).  Up to
+    ``DIST_CLUSTER * DIST_THREADS`` float4 vectors: one cluster of the
+    least power of two of blocks, at most 8, that gives a block at most
+    256 vectors (at most 1024 with 8), one vector a thread.  Beyond: a
+    cooperative grid of one block an SM (so that every block is
+    resident), each a tile of ceil(vectors / sms) vectors on up to
+    ``DIST_GRID_THREADS`` threads, kept on chip up to ``DIST_HELD``
+    vectors a block and computed again past that."""
+    nv = max(1, -(-N // 4))
+    cluster = nv <= DIST_CLUSTER * DIST_THREADS
+    if cluster:
+        blocks = min(DIST_CLUSTER, 1 << (-(-nv // 256) - 1).bit_length())
+    else:
+        blocks = sms
+    tile = -(-nv // blocks)
+    if not cluster:
+        blocks = -(-nv // tile)
+    threads = min(DIST_THREADS if cluster else DIST_GRID_THREADS,
+                  max(32, 1 << (tile - 1).bit_length()))
+    return ref.DistSplit(cluster, blocks, threads, tile,
+                         min(tile, DIST_HELD))
+
+
+def _alpha_arg(alpha, dev: torch.device):
+    """``(pointer, value)`` for the launcher: a CUDA tensor on ``dev`` goes
+    by pointer (f32, one element); a number or a CPU tensor by value, so a
+    call makes no copy to the card and no stream synchronisation."""
+    if isinstance(alpha, torch.Tensor):
+        if alpha.numel() != 1:
+            raise ValueError(f"dist_update alpha must hold one value, got "
+                             f"shape {tuple(alpha.shape)}")
+        if alpha.device.type == "cuda":
+            if alpha.device != dev:
+                raise ValueError(f"alpha on {alpha.device}, D on {dev}")
+            return _f32("alpha", alpha).data_ptr(), 0.0
+    return None, float(alpha)
+
+
+def _dist_outputs(N: int, split: ref.DistSplit, dev):
+    """D' (N,), Z () and, on the grid route, the address of the f64 block
+    sums (else None): one allocation, the sums 8-byte aligned after Z and
+    passed as an address (a float64 view would cost host time a call)."""
+    off = N + 1 + (N + 1) % 2
+    parts = 0 if split.cluster else split.blocks
+    buf = torch.empty((off + 2 * parts,), dtype=F32, device=dev)
+    return buf[:N], buf[N], (buf.data_ptr() + 4 * off) if parts else None
+
+
+def _dist_update_launch(alpha, D: torch.Tensor, y: torch.Tensor,
+                        h: torch.Tensor, split: ref.DistSplit):
+    """Launch ``csrc/dist_update.cu`` on checked, contiguous f32 card
+    tensors of N >= 1 samples spread as ``split`` says; returns
+    ``(D', Z)``.  The launcher refuses a split that does not cover N, and a
+    grid that cannot be co-resident (CUDA error 720)."""
+    N = D.shape[0]
+    a_ptr, a_val = _alpha_arg(alpha, D.device)
+    out, Z, parts = _dist_outputs(N, split, D.device)
+    from repro_torch.kernels.build import load
+    with _on_device(D):
+        _launch("dist_update", load().dist_update_launch, a_ptr, a_val,
+                D.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(),
+                Z.data_ptr(), parts, N, *split, _stream(D))
+    return out, Z
+
+
 def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
     """Fused AdaBoost distribution update (paper eq. 4) -> ``(D', Z)``:
     w = D * exp(-alpha * y * h), Z = sum(w) as a 0-d f32 tensor,
     D' = w / (Z + 1e-30) (see :func:`ref.dist_update_ref`).  ``alpha`` is a
-    number or a 0-d tensor; D, y and h are (N,)."""
-    a = torch.as_tensor(alpha, dtype=F32, device=D.device)
-    if _on_cpu(a, D, y, h):
-        return ref.dist_update_ref(a, D, y, h)
+    number or a one-element tensor; D, y and h are (N,).
+
+    On the card: one launch, spread as :func:`dist_split` picks for the
+    card's SM count; Z is summed in f64 in one fixed order
+    (:func:`ref.dist_update_in_kernel_order`) and rounded once, so it is
+    the same run to run.  A number or a CPU tensor alpha goes to the
+    kernel by value, a CUDA tensor by pointer: the call never waits for
+    the card."""
+    if _on_cpu(D, y, h):
+        return ref.dist_update_ref(alpha, D, y, h)
     N = D.shape[0]
-    if D.dim() != 1 or y.shape != (N,) or h.shape != (N,) or a.numel() != 1:
-        raise ValueError(f"dist_update shapes alpha{tuple(a.shape)} "
-                         f"D{tuple(D.shape)} y{tuple(y.shape)} "
-                         f"h{tuple(h.shape)}")
+    if D.dim() != 1 or y.shape != (N,) or h.shape != (N,):
+        raise ValueError(f"dist_update shapes D{tuple(D.shape)} "
+                         f"y{tuple(y.shape)} h{tuple(h.shape)}")
     D, y, h = _f32("D", D), _f32("y", y), _f32("h", h)
-    dev = D.device
-    out = torch.empty((N,), dtype=F32, device=dev)
-    Z = torch.zeros((), dtype=F32, device=dev)
     if N == 0:
-        return out, Z
-    from repro_torch.kernels.build import load
-    lib = load()
-    partials = torch.empty((lib.dist_update_partials(N),),
-                           dtype=torch.float64, device=dev)
-    with _on_device(D):
-        _launch("dist_update", lib.dist_update_launch, a.data_ptr(),
-                D.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(),
-                Z.data_ptr(), partials.data_ptr(), N, _stream(D))
-    return out, Z
+        _alpha_arg(alpha, D.device)
+        return (torch.empty((0,), dtype=F32, device=D.device),
+                torch.zeros((), dtype=F32, device=D.device))
+    return _dist_update_launch(alpha, D, y, h,
+                               dist_split(N, _sms(D.get_device())))
 
 
 FLASH_DTYPES = (torch.float32, torch.bfloat16)

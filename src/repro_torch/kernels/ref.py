@@ -285,6 +285,81 @@ def dist_update_ref(alpha, D: torch.Tensor, y: torch.Tensor,
     return w / (Z + 1e-30), Z
 
 
+class DistSplit(NamedTuple):
+    """How ``csrc/dist_update.cu`` spreads N samples: float4 vectors
+    v = i // 4, ``tile`` consecutive vectors a block over ``blocks`` blocks
+    of ``threads`` threads (thread t takes the block's vectors t,
+    t + threads, ...), in one thread-block cluster where ``cluster``, else
+    in a cooperative grid.  A block keeps the first ``held`` vectors of its
+    tile on chip across the barrier and computes the rest again.
+    ``blocks``, ``threads`` and ``tile`` fix the order of Z
+    (:func:`dist_update_in_kernel_order`); ``cluster`` and ``held`` do
+    not."""
+    cluster: bool
+    blocks: int
+    threads: int
+    tile: int
+    held: int
+
+
+def _fold(v: torch.Tensor) -> torch.Tensor:
+    """A warp's fixed tree over the last dimension (a power of two): the
+    upper half added to the lower, until one is left."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def dist_update_in_kernel_order(alpha, D: torch.Tensor, y: torch.Tensor,
+                                h: torch.Tensor, split: DistSplit):
+    """``csrc/dist_update.cu``'s update, emulated on the CPU: ``(D', Z)``
+    as :func:`dist_update_ref` returns them, with Z summed in the kernel's
+    order.  Used by the tests only.
+
+    w as :func:`dist_update_ref` computes it (its exp may differ from the
+    card's by an ulp; at alpha = 0 w is D on both).  Thread t of block b
+    adds its samples 4 v .. 4 v + 3 of vectors v = b * tile + t,
+    b * tile + t + threads, ... (those below b * tile + tile and samples
+    below N) to an f64 sum from zero, in that order.  A block's sum is the
+    fixed tree (:func:`_fold`) over each warp's 32 lanes, then over the
+    warps' sums padded with zeros to 32.  Z: lane l adds the block sums
+    l, l + 32, ... in order from zero, then the tree over the lanes,
+    rounded once to f32.  Samples past N add zeros, which leave every sum
+    as it is.  N >= 1."""
+    a = torch.as_tensor(alpha, dtype=F32)
+    D, y, h = D.to(F32), y.to(F32), h.to(F32)
+    N = D.shape[0]
+    w = D * torch.exp(-a * y * h)
+    _cluster, blocks, threads, tile, _held = split
+    steps = -(-tile // threads)
+    b = torch.arange(blocks)[:, None, None, None]
+    k = torch.arange(steps)[None, :, None, None]
+    t = torch.arange(threads)[None, None, :, None]
+    j = torch.arange(4)[None, None, None, :]
+    lv = k * threads + t
+    i = 4 * (b * tile + lv) + j
+    live = (lv < tile) & (i < N)
+    w64 = w.double()
+    vals = torch.where(live, w64[i.clamp(max=N - 1)], 0.0)
+    acc = torch.zeros((blocks, threads), dtype=torch.float64)
+    for kk in range(steps):
+        for jj in range(4):
+            acc = acc + vals[:, kk, :, jj]
+    warps = _fold(acc.view(blocks, threads // 32, 32))
+    warps = torch.cat([warps, warps.new_zeros((blocks, 32 - warps.shape[1]))],
+                      1)
+    parts = _fold(warps)
+    rows = -(-blocks // 32)
+    lanes = torch.cat([parts, parts.new_zeros(rows * 32 - blocks)]).view(
+        rows, 32)
+    total = torch.zeros(32, dtype=torch.float64)
+    for r in range(rows):
+        total = total + lanes[r]
+    Z = _fold(total).to(F32)
+    return w / (Z + 1e-30), Z
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True) -> torch.Tensor:
     """Plain softmax attention.  q: (B,H,Tq,hd), k,v: (B,Hkv,Tk,hd) with H

@@ -756,15 +756,196 @@ def test_stump_vote_kernels_are_batch_invariant_on_card(card, T):
     assert torch.equal(bits(alone.cpu()), bits(want))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 37, 2048, 2049, 8192, 1_000_003])
-def test_dist_update_kernel_matches_plain_on_card(card, N):
-    rng = np.random.RandomState(N)
+# ----------------------------------------------------------- dist_update
+def dist_case(N, seed=None):
+    """A normalised distribution, +-1 labels, margins in [-1, 1] with a
+    third of them stump-like (exactly +-1)."""
+    rng = np.random.RandomState(N if seed is None else seed)
     D = rng.rand(N).astype(np.float32)
     D /= D.sum()
     y = np.where(rng.rand(N) < 0.5, 1.0, -1.0).astype(np.float32)
     h = rng.uniform(-1, 1, N).astype(np.float32)
-    D, y, h = [x.to(card) for x in t(D, y, h)]
+    h[::3] = np.sign(h[::3])
+    return D, y, h
+
+
+def dist_capacity(sms):
+    """Samples the grid route keeps on chip on a card of ``sms`` SMs."""
+    return sms * ops.DIST_HELD * 4
+
+
+# the route boundaries at ``sms`` SMs: the last cluster size (4 * 8 * 1024
+# samples) and the on-chip capacity, each +-1
+CLUSTER_MAX = 4 * ops.DIST_CLUSTER * ops.DIST_THREADS
+DIST_BOUNDARIES = [CLUSTER_MAX - 1, CLUSTER_MAX, CLUSTER_MAX + 1]
+
+
+def dist_boundary_ns(sms):
+    cap = dist_capacity(sms)
+    return DIST_BOUNDARIES + [cap - 1, cap, cap + 1]
+
+
+@pytest.mark.parametrize("N", [1, 37, 8192, 8193] + DIST_BOUNDARIES
+                         + ["cap-1", "cap", "cap+1"])
+def test_dist_update_kernel_order_matches_jax(jax_ref, N):
+    """The CPU emulation of csrc/dist_update.cu's order against the JAX
+    package's plain version, at the split the wrapper picks: 132 SMs, and
+    2 SMs for the capacity boundary (where the grid starts to compute w
+    again), which lies at 7.6 M samples on 132.  Z rel 1e-6 (an f64 sum
+    in another order, rounded once), D' atol 1e-6."""
+    jnp, jref = jax_ref
+    sms = 132
+    if isinstance(N, str):
+        sms = 2
+        N = dist_capacity(sms) + {"cap-1": -1, "cap": 0, "cap+1": 1}[N]
+    split = ops.dist_split(N, sms)
+    D, y, h = dist_case(N)
+    for alpha in (0.7, -0.3, 0.0):
+        got, z = ref.dist_update_in_kernel_order(alpha, *t(D, y, h), split)
+        want, wz = jref.dist_update_ref(alpha, *map(jnp.asarray, (D, y, h)))
+        assert z.shape == () and z.dtype == torch.float32
+        np.testing.assert_allclose(float(z), float(wz), rtol=1e-6)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+
+
+def test_dist_update_kernel_order_is_its_tree():
+    """The emulation adds what the kernel adds where it adds it: thread
+    sums in sample order, a warp's tree, the block sums lane by lane.
+    Weights picked so that each order rounds its own way."""
+    # thread 0 holds samples 0..3 (1 + 2^-24, exact in f64), thread 1
+    # 4..7 (3 * 2^-54); the warp's tree adds the two: past the f32 tie,
+    # so Z rounds up.  In sample order each 2^-54 is lost against 1 and Z
+    # is the tie, rounded to even: 1.
+    w = torch.tensor([1.0, 2.0 ** -24, 0.0, 0.0] + [2.0 ** -54] * 3 + [0.0],
+                     dtype=torch.float64).float()
+    assert float(w.sum()) == 1.0
+    ones = torch.ones(8)
+    _, z = ref.dist_update_in_kernel_order(
+        0.0, w, ones, ones, ref.DistSplit(True, 1, 32, 2, 2))
+    assert z.item() == 1.0 + 2.0 ** -23
+    # every split of these samples covers each one exactly once
+    D, y, h = t(*dist_case(1000, 3))
+    want = ref.dist_update_ref(0.0, D, y, h)[1]
+    for split in (ops.dist_split(1000, 132), ops.dist_split(1000, 3),
+                  ref.DistSplit(False, 3, 64, 84, 0),
+                  ref.DistSplit(False, 40, 32, 7, 7)):
+        got = ref.dist_update_in_kernel_order(0.0, D, y, h, split)[1]
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+DIST_SMS = [132, 114, 78, 16, 2]
+
+
+@pytest.mark.parametrize("sms", DIST_SMS)
+def test_dist_split_picks_each_route_at_its_boundaries(sms):
+    """One cluster up to CLUSTER_MAX samples, a cooperative grid beyond;
+    the grid keeps w on chip up to sms * DIST_HELD float4 and computes
+    the rest again past that.  Every split is one the launcher takes and
+    that stays resident: threads a power of two from 32 to 1024 (512 on
+    the grid), the least that holds the tile; a cluster of the fewest
+    blocks (a power of two up to 8) that gives each at most 256 vectors
+    (1024 at 8 blocks); a grid of at most one block an SM with no empty
+    block; at most DIST_HELD vectors kept a block (224 KB of shared
+    memory)."""
+    cap = dist_capacity(sms)
+    ns = sorted({1, 2, 5, 37, 1020, 1021, 1024, 1025, 8192, 8193, 4_194_304,
+                 10_000_000, *dist_boundary_ns(sms)})
+    for N in ns:
+        s = ops.dist_split(N, sms)
+        nv = -(-N // 4)
+        assert s.cluster == (N <= CLUSTER_MAX), (N, s)
+        assert s.blocks * s.tile >= nv and (s.blocks - 1) * s.tile < nv
+        assert 32 <= s.threads <= 1024 and s.threads & (s.threads - 1) == 0
+        most = ops.DIST_THREADS if s.cluster else ops.DIST_GRID_THREADS
+        need = min(s.tile, most)                # the least that holds it
+        assert s.threads >= need and (s.threads == 32 or s.threads < 2 * need)
+        assert s.held == min(s.tile, ops.DIST_HELD)
+        if s.cluster:                            # the fewest blocks
+            assert s.blocks in (1, 2, 4, 8) and s.tile <= 1024
+            assert s.tile <= 256 or s.blocks == 8
+            assert s.blocks == 1 or -(-nv // (s.blocks // 2)) > 256
+        else:
+            assert s.blocks <= sms and s.tile == -(-nv // sms)
+        assert (s.held < s.tile) == (N > cap), (N, cap, s)
+    assert ops.dist_split(8192, 132) == ref.DistSplit(True, 8, 256, 256, 256)
+    assert ops.dist_split(4_194_304, 132) == ref.DistSplit(False, 132, 512,
+                                                           7944, 7944)
+
+
+@pytest.mark.parametrize("name,c_value", [
+    ("DIST_CLUSTER", "kMaxCluster"), ("DIST_THREADS", "kMaxThreads"),
+    ("DIST_HELD", "kMaxHeld")])
+def test_dist_constants_match_the_cuda_source(name, c_value):
+    """The split chooser's constants are csrc/dist_update.cu's: a split
+    made from other ones would be refused by the launcher."""
+    src = (Path(ops.__file__).parent / "csrc" / "dist_update.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert getattr(ops, name) == consts[c_value]
+
+
+def test_dist_update_alpha_forms_give_equal_bits_on_cpu():
+    """alpha as a Python float, a numpy float of either width or a 0-d
+    CPU tensor: the same f32 alpha, so the same bits (the plain version
+    and the emulation), and every one goes to the kernel by value."""
+    D, y, h = t(*dist_case(4099, 5))
+    alpha = float(np.float32(0.7))
+    forms = [alpha, np.float32(alpha), np.float64(alpha),
+             torch.tensor(alpha), torch.tensor(alpha, dtype=torch.float64)]
+    split = ops.dist_split(4099, 132)
+    want = ops.dist_update(alpha, D, y, h)
+    want_k = ref.dist_update_in_kernel_order(alpha, D, y, h, split)
+    for a in forms:
+        for got, w in zip(ops.dist_update(a, D, y, h), want):
+            assert torch.equal(got.view(torch.int32), w.view(torch.int32))
+        for got, w in zip(ref.dist_update_in_kernel_order(a, D, y, h, split),
+                          want_k):
+            assert torch.equal(got.view(torch.int32), w.view(torch.int32))
+        ptr, val = ops._alpha_arg(a, torch.device("cuda", 0))
+        assert ptr is None and np.float32(val) == np.float32(alpha)
+    with pytest.raises(ValueError):
+        ops._alpha_arg(torch.ones(2), torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("N", [1, 2, 8192, 8193, 100_000])
+def test_dist_outputs_are_one_allocation(N):
+    """D', Z and the grid route's f64 block sums: one buffer, D' at its
+    start (16-byte aligned), Z right after it, the sums' address 8-byte
+    aligned after Z with room for one a block; none where the route is a
+    cluster."""
+    split = ops.dist_split(N, 132)
+    out, z, parts = ops._dist_outputs(N, split, torch.device("cpu"))
+    assert out.shape == (N,) and z.shape == () and out.dtype == torch.float32
+    assert z.untyped_storage().data_ptr() == out.data_ptr()
+    assert z.data_ptr() == out.data_ptr() + 4 * N
+    if split.cluster:
+        assert parts is None
+    else:
+        storage = out.untyped_storage()
+        assert parts % 8 == 0 and parts > z.data_ptr()
+        end = storage.data_ptr() + storage.nbytes()
+        assert parts + 8 * split.blocks <= end
+
+
+def dist_on_card(card, N, seed=None):
+    return [v.to(card) for v in t(*dist_case(N, seed))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 37, 2048, 2049, 8192, 8193, 1_000_003,
+                               4_194_304, 10_000_000] + DIST_BOUNDARIES
+                         + ["cap-1", "cap", "cap+1"])
+def test_dist_update_kernel_matches_plain_on_card(card, N):
+    """One launch; D' within 1e-6 and Z within 1e-6 relative of the plain
+    version; equal bits run to run and for alpha as a number and as a CUDA
+    tensor; at alpha = 0 (w is D on both) Z bit-equal to the CPU emulation
+    of the kernel's order, and D' too.  N at both route boundaries +-1 (the
+    capacity's on this card) and above the capacity."""
+    if isinstance(N, str):
+        N = dist_capacity(ops._sms(0)) + {"cap-1": -1, "cap": 0,
+                                          "cap+1": 1}[N]
+    D, y, h = dist_on_card(card, N)
     before = ops.LAUNCHES["dist_update"]
     got, z = ops.dist_update(0.7, D, y, h)
     torch.cuda.synchronize()
@@ -773,9 +954,101 @@ def test_dist_update_kernel_matches_plain_on_card(card, N):
     assert z.shape == () and z.dtype == torch.float32
     torch.testing.assert_close(z, wz, rtol=1e-6, atol=0)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-    # the same three kernels, the same order: equal run to run
+    # one fixed order: equal run to run, alpha by value or by pointer
     again, z2 = ops.dist_update(torch.tensor(0.7, device=card), D, y, h)
-    assert torch.equal(again, got) and torch.equal(z2, z)
+    third, z3 = ops.dist_update(0.7, D, y, h)
+    for a, b in ((again, got), (z2, z), (third, got), (z3, z)):
+        assert torch.equal(bits(a), bits(b))
+    split = ops.dist_split(N, ops._sms(0))
+    got0, z0 = ops.dist_update(0.0, D, y, h)
+    want0, wz0 = ref.dist_update_in_kernel_order(0.0, D.cpu(), y.cpu(),
+                                                 h.cpu(), split)
+    assert torch.equal(bits(z0.cpu()), bits(wz0))
+    assert torch.equal(bits(got0.cpu()), bits(want0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8192, 100_000, 4_194_304])
+def test_dist_update_routes_not_taken_give_their_order_on_card(card, N):
+    """The route the wrapper does not take at N, forced through the
+    private launcher: the grid at the cluster's sizes, one cluster where
+    it can hold N, and w computed again for every sample (held 0), each
+    with Z bit-equal to the emulation of its split at alpha = 0; w
+    computed again gives the bits of w kept."""
+    D, y, h = dist_on_card(card, N)
+    sms = ops._sms(0)
+    nv = -(-N // 4)
+    shipped = ops.dist_split(N, sms)
+    forced = [shipped._replace(held=0)]
+    if shipped.cluster:
+        tile = -(-nv // sms)
+        forced.append(ref.DistSplit(False, -(-nv // tile), max(32, 1 << (
+            tile - 1).bit_length()), tile, tile))
+    for split in forced:
+        got0, z0 = ops._dist_update_launch(0.0, D, y, h, split)
+        want0, wz0 = ref.dist_update_in_kernel_order(0.0, D.cpu(), y.cpu(),
+                                                     h.cpu(), split)
+        assert torch.equal(bits(z0.cpu()), bits(wz0)), split
+        assert torch.equal(bits(got0.cpu()), bits(want0)), split
+    kept = ops._dist_update_launch(0.7, D, y, h, shipped)
+    again = ops._dist_update_launch(0.7, D, y, h, forced[0])
+    for a, b in zip(kept, again):
+        assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8192, 4_194_304])
+def test_dist_update_is_one_device_operation_on_card(card, N):
+    """A call's whole device work, traced: one kernel, no fill and no
+    copy of alpha to the card, with alpha a number or a CUDA tensor."""
+    from torch.profiler import ProfilerActivity, profile
+    D, y, h = dist_on_card(card, N)
+    a = torch.tensor(0.7, device=card)
+    ops.dist_update(0.7, D, y, h)
+    torch.cuda.synchronize()
+    for alpha in (0.7, a):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                ops.dist_update(alpha, D, y, h)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 5 and all("dist_update_kernel" in n
+                                       for n in names), names
+
+
+@pytest.mark.cuda
+def test_dist_update_with_a_number_alpha_never_syncs_on_card(card):
+    """alpha as a number, a numpy float or a CPU tensor goes by value: on
+    either route a call neither copies it to the card nor waits."""
+    small = dist_on_card(card, 8192)
+    large = dist_on_card(card, 100_000)
+    for args in (small, large):                    # the build, outside
+        ops.dist_update(0.7, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for alpha in (0.7, np.float32(0.7), torch.tensor(0.7)):
+            for args in (small, large):
+                ops.dist_update(alpha, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_dist_update_grid_that_cannot_be_resident_is_refused_on_card(card):
+    """Four blocks an SM of 1024 threads and 224 KB each cannot all be
+    resident: the cooperative launch returns its error (720) and runs
+    nothing, and the next call works.  (The splits the wrapper picks, one
+    block an SM, launch in the tests above.)"""
+    sms = ops._sms(0)
+    D, y, h = dist_on_card(card, 1000)
+    bad = ref.DistSplit(False, 4 * sms, 1024, ops.DIST_HELD, ops.DIST_HELD)
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        ops._dist_update_launch(0.7, D, y, h, bad)
+    got, z = ops.dist_update(0.7, D, y, h)
+    torch.testing.assert_close(z, ref.dist_update_ref(0.7, D, y, h)[1],
+                               rtol=1e-6, atol=0)
 
 
 # ----------------------------------------------------------- flash_attention
