@@ -71,7 +71,22 @@ nonzero (there is no CPU fall-back):
    32 greedy tokens, f32 params from the port's init; ``flash_attention``
    must launch once per layer of the prefill; then the same params on the
    CPU replay the prefill and every decode step in lockstep, fed the
-   card's tokens.
+   card's tokens;
+11. serving at scale: iot/gilbert at its registered size (4,000 x 24, 24
+   clients, 20 rounds) through ``run_scenario`` on the card, trained,
+   published into a 2-host sharded cluster, gossiped and replayed to the
+   autoscaled fleet for 1.5 s under the analytic service model: every
+   field of the replay report but the snapshot version must equal the JAX
+   package's recorded run, the version the enhanced run's publishes, and
+   ``stump_scan`` and ``stump_vote_batched`` must launch; then the same
+   arrivals through two fleets over copies of the trained cluster, on the
+   card and on the CPU's plain path (rid, tenant and version equal,
+   margins within rtol/atol 1e-5, both reports equal the first); the
+   arrivals again on the card with the measured service time (p50/p99,
+   wall, the vote's event time at its commonest launch shape); the JAX
+   package's autoscale churn traffic on the card, equal to its recorded
+   run and loss-free; and the enhanced run again with tracing on and an
+   audit attached, bit-equal to the first.
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
 path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
@@ -80,13 +95,14 @@ bf16 at the path's shape, a large one and d 128, and the path's own
 ``scaled_dot_product_attention`` timed beside it; it counts the tensor-core
 instructions (HGMMA, HMMA) of each flash kernel in the built library's SASS.
 Launch counts are zeroed just before phase 4 and read just after phase 5,
-and zeroed again just before each later path (7.2, 8, 9, 10) and read
-just after it.
+and zeroed again just before each later path (7.2, 8, 9, 10, 11) and read
+just after it (phase 11's main path is its step 1).
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
@@ -2695,6 +2711,344 @@ def lm_serve():
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+REPLAY_SCENARIO, REPLAY_TRACE = "iot", "gilbert"
+# The JAX package's run of step 1's call (the registered iot domain, 4,000
+# samples x 24 features, 24 clients, 20 rounds, 2 hosts, 1.5 s, autoscale
+# on), on a CPU:
+#   PYTHONPATH=src python -c "from repro.sim.harness import run_scenario;
+#   print(run_scenario('iot', trace='gilbert', seed=0).serve)"
+# Every field but snapshot_version and killed_host is a function of the
+# behavior models (seed + 101), the request RNG (seed * 31 + 7) and the
+# analytic service model alone, not of the trained stumps: the card's
+# replay must give it, integers exactly and floats to REPLAY_REL (Python
+# arithmetic on the same modeled times).
+REPLAY_REFERENCE = {
+    "offered": 784, "offline_suppressed": 120, "completed": 784,
+    "rejected": 0, "p50_ms": 2.5999999999999357, "p99_ms": 4.400000000000001,
+    "throughput_rps": 521.5572983944247, "mean_batch": 1.5870445344129556,
+    "cache_hit_rate": 0.4489795918367347, "hosts_final": 2, "scale_outs": 0,
+    "scale_ins": 0, "rerouted": 0,
+    "slo": {"good": 784, "bad": 0, "budget_remaining": 1.0,
+            "alerts_fired": 0, "alerts_active": 0}}
+REPLAY_REL = 1e-9
+CHURN_TENANTS = tuple(f"t{i}" for i in range(6))
+# The JAX package's runs of churn_runs' traffic, on a CPU:
+#   PYTHONPATH=src python -c "import chip_smoke, repro.serve;
+#   print(chip_smoke.churn_runs(repro.serve))"
+CHURN_REFERENCE = {
+    "pressure": dict(
+        accepted=191, completed=191, hosts=1, scale_outs=2, scale_ins=2,
+        rerouted=0, events=[[0.020500000000000015, "out", "scale-0", 2],
+                            [0.030500000000000024, "out", "scale-1", 3],
+                            [0.19000000000000009, "in", "host-0", 2],
+                            [0.21000000000000008, "in", "scale-0", 1]],
+        responses="d3a2774b0e0e13aeee8f4b1d6e5105f7"),
+    "churn": dict(
+        accepted=505, completed=505, hosts=2, scale_outs=8, scale_ins=8,
+        rerouted=0, events=[[0.020800000000000003, "out", "scale-0", 3],
+                            [0.03080000000000003, "out", "scale-1", 4],
+                            [0.09999999999999987, "in", "host-0", 3],
+                            [0.11999999999999987, "in", "host-1", 2],
+                            [1.2703999999999995, "out", "scale-2", 3],
+                            [1.2807999999999984, "out", "scale-3", 4],
+                            [1.359999999999994, "in", "scale-0", 3],
+                            [1.3799999999999941, "in", "scale-1", 2],
+                            [2.530399999999994, "out", "scale-4", 3],
+                            [2.540799999999993, "out", "scale-5", 4],
+                            [2.6199999999999886, "in", "scale-2", 3],
+                            [2.6399999999999886, "in", "scale-3", 2],
+                            [3.7903999999999884, "out", "scale-6", 3],
+                            [3.8007999999999873, "out", "scale-7", 4],
+                            [3.879999999999983, "in", "scale-4", 3],
+                            [3.899999999999983, "in", "scale-5", 2]],
+        responses="de355421542a073a4d6fe6be87c42916"),
+}
+
+
+def replay_equal(got: dict, want: dict, label: str) -> None:
+    """``got`` holds every field of ``want`` (nested dicts too): integers
+    and strings exactly, floats to ``REPLAY_REL`` relative."""
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            replay_equal(g, w, f"{label}.{k}")
+        elif isinstance(w, float):
+            if not math.isclose(g, w, rel_tol=REPLAY_REL, abs_tol=0.0):
+                raise AssertionError(f"{label}.{k}: {g!r} != {w!r}")
+        elif g != w:
+            raise AssertionError(f"{label}.{k}: {g!r} != {w!r}")
+
+
+def churn_cluster(serve, n_hosts: int):
+    """The JAX package's ``tests/test_autoscale.py`` ``_cluster``: six
+    tenants' synthetic packed stumps (4 each over 6 features), gossiped."""
+    cluster = serve.ShardCluster(n_hosts, serve.GossipConfig(seed=0))
+    for i, tenant in enumerate(CHURN_TENANTS):
+        rng = np.random.RandomState(i)
+        p = np.zeros((4, 4), np.float32)
+        p[:, 0] = rng.randint(0, 6, size=4)
+        p[:, 1] = rng.randn(4)
+        p[:, 2] = np.where(rng.rand(4) > 0.5, 1.0, -1.0)
+        a = (rng.rand(4) + 0.1).astype(np.float32)
+        cluster.publish_packed(tenant, p, a, clock=0.0)
+    cluster.run_until_quiescent()
+    return cluster
+
+
+def churn_runs(serve, **server_kw) -> dict:
+    """The traffic of the JAX package's ``tests/test_autoscale.py``
+    ``test_autoscaler_scales_out_under_pressure_and_back_in_when_idle``
+    ("pressure") and
+    ``test_two_host_autoscaled_fleet_membership_churn_is_loss_free``
+    ("churn"), with their stumps and service models, through ``serve``'s
+    ``ShardedEnsembleServer`` and ``FleetAutoscaler`` (``serve`` is
+    ``repro_torch.serve``, ``server_kw`` its ``device=``; or the JAX
+    package's serving module, to record the reference).  Returns each
+    run's autoscaler counters, events, and a digest of every response's
+    (rid, tenant, version) in answer order; raises if a request is lost."""
+    batch = serve.BatchConfig(queue_budget=16, max_batch=4, adaptive=False,
+                              fixed_window_units=1)
+    out = {}
+    for label, hosts, model, scale_kw, seed in (
+            ("pressure", 1, 5e-3, dict(min_hosts=1, max_hosts=3), 0),
+            ("churn", 2, 4e-3, dict(min_hosts=2, max_hosts=4), 7)):
+        cluster = churn_cluster(serve, hosts)
+        server = serve.ShardedEnsembleServer(
+            cluster, batch, service_model=lambda n, s=model: s, **server_kw)
+        scaler = serve.FleetAutoscaler(server, serve.AutoscaleConfig(
+            target_queue=2.0, adapt_every_s=0.01, step_down=1.0,
+            **scale_kw))
+        rng = np.random.RandomState(seed)
+        responses, accepted, t = [], 0, 0.0
+
+        def load(n, dt, pick):
+            nonlocal accepted, t
+            for i in range(n):
+                t += dt
+                ok, done = server.submit(
+                    CHURN_TENANTS[pick(i)], rng.randn(6).astype(np.float32),
+                    t)
+                accepted += ok
+                responses.extend(done)
+                responses.extend(scaler.step(t))
+
+        def idle(n):
+            nonlocal t
+            for _ in range(n):
+                t += 0.02
+                responses.extend(server.advance(t))
+                responses.extend(scaler.step(t))
+        if label == "pressure":         # sustained overload, then idle
+            load(300, 5e-4, lambda i: i % len(CHURN_TENANTS))
+            idle(200)
+        else:                           # on/off phases force churn
+            for _ in range(4):
+                load(150, 4e-4, lambda i: rng.randint(len(CHURN_TENANTS)))
+                idle(60)
+        responses.extend(server.drain())
+        rids = [r.rid for r in responses]
+        if len(rids) != accepted or len(set(rids)) != accepted:
+            raise AssertionError(f"churn {label}: {accepted} accepted, "
+                                 f"{len(rids)} answered, {len(set(rids))} "
+                                 "unique")
+        seq = [(r.rid, r.tenant, int(r.snapshot_version)) for r in responses]
+        st = scaler.stats
+        out[label] = dict(
+            accepted=accepted, completed=server.report()["completed"],
+            hosts=len(server.servers), scale_outs=st.scale_outs,
+            scale_ins=st.scale_ins, rerouted=st.rerouted,
+            events=[list(e) for e in st.events],
+            responses=hashlib.blake2b(repr(seq).encode(),
+                                      digest_size=16).hexdigest())
+    return out
+
+
+def replay_copy(windows, rng_state, cfg, **server_kw):
+    """A fleet over a copy of step 1's trained cluster, prepared as
+    ``replay_serve`` prepares it (gossip to quiescence, clocks rebased)."""
+    from repro_torch.convert import shard_cluster_from_numpy
+    from repro_torch.serve import ShardedEnsembleServer
+    from repro_torch.sim import harness
+    cluster = shard_cluster_from_numpy(windows, cfg, rng_state=rng_state)
+    cluster.run_until_quiescent()
+    cluster.rebase_clock(0.0)
+    return ShardedEnsembleServer(cluster, harness.SERVE_BATCH, **server_kw)
+
+
+def serve_fleet() -> dict:
+    """Phase 11: serving at scale on the card.  (1) ``run_scenario`` on
+    iot/gilbert at its registered size and default replay, held to the
+    JAX package's report; (2) the same arrivals through two fleets over
+    copies of the trained cluster, the card's and the CPU's plain path;
+    (3) the arrivals again on the card under the wall clock; (4) the JAX
+    package's autoscale churn traffic on the card, held to its recorded
+    run; (5) the enhanced run again with tracing on and an audit attached,
+    bit-equal to step 1's.  Returns step 1's launch counts."""
+    from repro_torch import obs, serve
+    from repro_torch.convert import cluster_windows
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.kernels import ops
+    from repro_torch.sim import harness
+    from repro_torch.sim.scenarios import get_scenario
+
+    sc = get_scenario(REPLAY_SCENARIO)
+    seed, duration = 0, 1.5
+    captured, engines = {}, []
+    real_replay = harness.replay_serve
+
+    def recording_replay(sc_, cluster, data, trace, **kw):
+        captured.update(windows=cluster_windows(cluster), data=data,
+                        rng_state=cluster._rng.getstate(),
+                        cfg=cluster.cfg)
+        return real_replay(sc_, cluster, data, trace, **kw)
+
+    class RecordingEngine(FederatedBoostEngine):
+        def run(self):
+            m = super().run()
+            engines.append(self)
+            return m
+
+    t0 = time.perf_counter()
+    harness.replay_serve = recording_replay
+    harness.FederatedBoostEngine = RecordingEngine
+    try:
+        rep = harness.run_scenario(REPLAY_SCENARIO, trace=REPLAY_TRACE,
+                                   seed=seed, device=CARD)
+    finally:
+        harness.replay_serve = real_replay
+        harness.FederatedBoostEngine = FederatedBoostEngine
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    s = rep.serve
+    log(f"replay 11.1: run_scenario {REPLAY_SCENARIO} {REPLAY_TRACE} seed "
+        f"{seed} on {CARD} ({sc.domain.n_samples}x{sc.domain.n_features}, "
+        f"{sc.domain.n_clients} clients, {sc.n_rounds} rounds): "
+        f"{wall:.2f} s with data; launches {launches}")
+    for line in harness.summarize(rep).splitlines():
+        log(f"replay 11.1: {line}")
+    log(f"replay 11.1: serve {json.dumps(s)}")
+    replay_equal(s, REPLAY_REFERENCE, "replay 11.1")
+    if s["snapshot_version"] != rep.enhanced.snapshots_published or \
+            s["snapshot_version"] < 1:
+        raise AssertionError(f"served snapshot v{s['snapshot_version']}, "
+                             f"{rep.enhanced.snapshots_published} published")
+    for name in ("stump_scan", "stump_vote_batched"):
+        if launches[name] <= 0:
+            raise AssertionError(f"replay: kernel {name} never launched")
+    log("replay 11.1: every field equals the JAX package's report; snapshot "
+        f"v{s['snapshot_version']} = the enhanced run's publishes; zero "
+        "loss held")
+
+    # (2) the same arrivals through a card fleet and a CPU fleet
+    t0 = time.perf_counter()
+    arrivals, offline = harness._serve_arrivals(
+        sc, captured["data"], REPLAY_TRACE, seed, duration)
+    answers = {}
+    for dev in (CARD, "cpu"):
+        server = replay_copy(captured["windows"], captured["rng_state"],
+                             captured["cfg"], device=dev,
+                             service_model=harness._service_model)
+        summary, responses = harness._replay(sc, server, arrivals, offline,
+                                             duration, True)
+        replay_equal(summary, s, f"replay 11.2 {dev}")
+        answers[dev] = responses
+    card, cpu = answers[CARD], answers["cpu"]
+    if [(r.rid, r.tenant, r.snapshot_version) for r in card] != \
+            [(r.rid, r.tenant, r.snapshot_version) for r in cpu]:
+        raise AssertionError("replay 11.2: card and cpu responses differ")
+    worst = max(abs(g.margin - c.margin) for g, c in zip(card, cpu))
+    far = sum(abs(g.margin - c.margin) > TOL + TOL * abs(c.margin)
+              for g, c in zip(card, cpu))
+    log(f"replay 11.2: {len(arrivals)} arrivals through two fleets over "
+        f"copies of the trained cluster: {len(card)} responses, rid/tenant/"
+        f"version equal, max |margin diff| card vs cpu {worst:.3g}; both "
+        f"reports equal step 1's ({time.perf_counter() - t0:.2f} s)")
+    if far:
+        raise AssertionError(f"replay 11.2: {far} margins differ beyond "
+                             f"rtol/atol {TOL} (max {worst})")
+
+    # (3) the card's own latency: the wall-clock service time
+    server = replay_copy(captured["windows"], captured["rng_state"],
+                         captured["cfg"], device=CARD)
+    shapes, restore = recording_stump_shapes()
+    try:
+        t0 = time.perf_counter()
+        summary, responses = harness._replay(sc, server, arrivals, offline,
+                                             duration, True)
+        torch.cuda.synchronize()
+        wall_replay = time.perf_counter() - t0
+    finally:
+        restore()
+    counts = shapes["stump_vote_batched"]
+    (B, T, N), n = counts.most_common(1)[0]
+    gen = torch.Generator(device=CARD).manual_seed(11)
+    args = vote_inputs(gen, B, T, N, 0)
+    event_ms = cuda_ms(lambda: ops.stump_vote_batched(*args), 50)
+    log(f"replay 11.3: wall-clock service on {CARD}: p50_ms="
+        f"{summary['p50_ms']:.4f} p99_ms={summary['p99_ms']:.4f} "
+        f"throughput_rps={summary['throughput_rps']:.1f} "
+        f"mean_batch={summary['mean_batch']:.4f} replay wall_s="
+        f"{wall_replay:.3f} for {len(responses)} responses; "
+        f"stump_vote_batched launch shapes " + ", ".join(
+            f"{shape} x{k}" for shape, k in counts.most_common())
+        + f"; event ms at {(B, T, N)}: {event_ms:.4f} | {nvidia_smi()}")
+
+    # (4) membership churn on the card
+    t0 = time.perf_counter()
+    churn = churn_runs(serve, device=CARD)
+    for label, got in churn.items():
+        log(f"replay 11.4 {label}: {json.dumps(got)}")
+        want = CHURN_REFERENCE[label]
+        diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        if diff:
+            raise AssertionError(f"churn {label} differs from the JAX "
+                                 f"package's run: {diff}")
+    log(f"replay 11.4: both churn runs equal the JAX package's (counters, "
+        f"events, every response's rid, tenant and version) and lost "
+        f"nothing ({time.perf_counter() - t0:.2f} s)")
+
+    # (5) audits on the card: measurement only
+    t0 = time.perf_counter()
+    plain = engines[1]
+    data = captured["data"]
+    eng = FederatedBoostEngine(sc.fedboost_config(seed=seed), data,
+                               "enhanced",
+                               behavior_for=sc.behavior_for(REPLAY_TRACE,
+                                                            seed),
+                               fleet=sc.fleet, device=CARD)
+    cluster = serve.ShardCluster(len(captured["windows"]),
+                                 serve.GossipConfig(seed=seed))
+    eng.attach_registry(cluster, sc.name, publish_every=2)
+    with obs.tracing():
+        audit = eng.attach_audit()
+        m = eng.run()
+    torch.cuda.synchronize()
+    want_m = rep.enhanced
+    keys = ("uplink_bytes", "downlink_bytes", "n_messages", "n_syncs",
+            "learners_merged", "snapshots_published", "rounds_unavailable",
+            "sim_time_s", "final_val_error", "final_test_error")
+    diff = {k: (getattr(m, k), getattr(want_m, k)) for k in keys
+            if getattr(m, k) != getattr(want_m, k)}
+    if list(eng.ensemble.alphas) != list(plain.ensemble.alphas):
+        diff["alphas"] = "differ"
+    fps = {hid: [w["fingerprint"] for w in win]
+           for hid, win in cluster_windows(cluster).items()}
+    if fps != {hid: [w["fingerprint"] for w in win]
+               for hid, win in captured["windows"].items()}:
+        diff["fingerprints"] = "differ"
+    if diff or audit.recorded != m.learners_merged:
+        raise AssertionError(f"audited run differs from step 1's: {diff}; "
+                             f"{audit.recorded} audited merges")
+    log(f"replay 11.5: audited enhanced run on {CARD} bit-equal to step 1's "
+        f"(counters, {len(plain.ensemble.alphas)} alphas, test error "
+        f"{m.final_test_error!r}, {sum(map(len, fps.values()))} snapshot "
+        f"fingerprints); {audit.recorded} merges audited, "
+        f"{len(audit.flags())} flags ({time.perf_counter() - t0:.2f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2794,6 +3148,16 @@ def main() -> int:
     log(f"launches on the LM serve path: {lm_launches}")
     launches["flash_attention"] = lm_launches["flash_attention"]
 
+    # the serving-at-scale path: counts zeroed just before phase 11, read
+    # after its step 1 (the replay through run_scenario) and after it ends
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    replay_launches = serve_fleet()
+    torch.cuda.synchronize()
+    log(f"launches on the replay path (step 1): {replay_launches}; in all "
+        f"of phase 11: {dict(ops.LAUNCHES)}; phase 11 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
     kernels = []
     MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "kernel_ms", "shape")
@@ -2806,6 +3170,8 @@ def main() -> int:
             bound_ms=main_r["bound_ms"], bound_by=main_r["bound_by"],
             library_ms=main_r["library_ms"], kernel_ms=main_r["kernel_ms"],
             shape=main_r["shape"],
+            **({"replay_launches": replay_launches[name]}
+               if name in ("stump_scan", "stump_vote_batched") else {}),
             **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()
                if label != "main"}))

@@ -1,14 +1,16 @@
-"""Carry learners, snapshots, data and LM params across from numpy.
+"""Carry learners, snapshots, clusters, data and LM params across from
+numpy.
 
 Both packages compute on the same inputs when each is handed the same
-numpy arrays: the JAX package's learners, snapshots, domain data and LM
-params turn into numpy with ``np.asarray`` (``jax.tree.map`` for a params
-pytree), and these functions turn numpy into this package's equivalents.
+numpy arrays: the JAX package's learners, snapshots, a cluster's registry
+windows, domain data and LM params turn into numpy with ``np.asarray``
+(``jax.tree.map`` for a params pytree), and these functions turn numpy
+into this package's equivalents.
 Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -16,6 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.serve.registry import EnsembleSnapshot
+from repro_torch.serve.shard import GossipConfig, ShardCluster
 
 F32 = torch.float32
 
@@ -77,6 +80,68 @@ def generic_snapshot_from_numpy(learners: Sequence[Mapping], alphas,
         tenant=tenant, version=int(version), published_at=float(published_at),
         train_progress=int(train_progress), weak_name=weak_name, alphas=al,
         learners=tuple(params_from_numpy(learners)))
+
+
+def cluster_windows(cluster) -> Dict[str, List[Dict]]:
+    """Each host's retained registry windows, oldest first, as the
+    mappings :func:`shard_cluster_from_numpy` takes: the snapshots' stamps,
+    fingerprints and arrays as numpy.  ``cluster`` is any cluster whose
+    hosts' registries have ``tenants()`` and ``history(tenant)`` (this
+    package's, or the JAX package's)."""
+    def one(s) -> Dict:
+        out = dict(tenant=s.tenant, version=s.version,
+                   published_at=s.published_at,
+                   train_progress=s.train_progress, weak_name=s.weak_name,
+                   fingerprint=s.fingerprint, alphas=np.asarray(s.alphas))
+        if s.stump_params is not None:
+            out["stump_params"] = np.asarray(s.stump_params)
+        else:
+            out["learners"] = [{k: np.asarray(v) for k, v in p.items()}
+                               for p in s.learners]
+        return out
+    return {hid: [one(s) for t in h.registry.tenants()
+                  for s in h.registry.history(t)]
+            for hid, h in cluster.hosts.items()}
+
+
+def shard_cluster_from_numpy(hosts: Mapping[str, Sequence[Mapping]],
+                             cfg: Optional[GossipConfig] = None, *,
+                             rng_state=None) -> ShardCluster:
+    """A :class:`ShardCluster` holding another cluster's state.
+
+    ``hosts`` maps each host id, in the cluster's order, to its retained
+    registry window, oldest first (:func:`cluster_windows`): one mapping a
+    snapshot with ``tenant``, ``version``, ``published_at``,
+    ``train_progress``, ``weak_name``, ``alphas`` and either
+    ``stump_params`` (stumps) or ``learners`` (a sequence of param dicts),
+    arrays as anything ``np.asarray`` takes, and optionally the
+    ``fingerprint`` it had there.  Each window is ingested with its version
+    stamps and publish times kept; a snapshot whose content fingerprint
+    differs from the one given raises.  ``rng_state``
+    (``random.Random.getstate()`` of the source cluster's peer-selection
+    RNG) continues its gossip; every host starts up."""
+    cluster = ShardCluster(cfg=cfg, host_ids=list(hosts))
+    for hid, window in hosts.items():
+        registry = cluster.hosts[hid].registry
+        for s in window:
+            meta = dict(tenant=s["tenant"], version=s["version"],
+                        train_progress=s["train_progress"],
+                        published_at=s["published_at"])
+            if s["weak_name"] == "stump":
+                snap = snapshot_from_numpy(np.asarray(s["stump_params"]),
+                                           np.asarray(s["alphas"]), **meta)
+            else:
+                snap = generic_snapshot_from_numpy(
+                    s["learners"], np.asarray(s["alphas"]), s["weak_name"],
+                    **meta)
+            want = s.get("fingerprint")
+            if want is not None and snap.fingerprint != want:
+                raise ValueError(f"{hid}: {snap.tenant} v{snap.version} "
+                                 f"fingerprint {snap.fingerprint} != {want}")
+            registry.ingest(snap)
+    if rng_state is not None:
+        cluster._rng.setstate(rng_state)
+    return cluster
 
 
 def domain_data_from_numpy(clients: Sequence, val, test) -> Dict:

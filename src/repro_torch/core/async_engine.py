@@ -68,8 +68,9 @@ default; asking for it without one raises).  Each weak-learner fit runs
 there: a stump fit launches the ``stump_scan`` kernel, a logistic or MLP
 fit takes its gradient steps with autograd.  Under the fleet profile the
 clients keep their numpy shards and ``D=None``: the fleet stacks them on
-the device itself, one copy per array.  Contribution audits are not
-ported yet.
+the device itself, one copy per array.  A contribution audit
+(:meth:`FederatedBoostEngine.attach_audit`) records every merge of the
+per-client profile.
 """
 from __future__ import annotations
 
@@ -211,6 +212,7 @@ class FederatedBoostEngine:
         self._tenant: Optional[str] = None
         self._publish_every = 1
         self._syncs_since_publish = 0
+        self.audit = None               # obs.ContributionAudit when attached
 
         # behavior_for: cid -> ClientBehavior, the client-heterogeneity
         # hook.  None builds the LegacyBehavior shim from the cfg scalars.
@@ -255,9 +257,12 @@ class FederatedBoostEngine:
         ``publish_every``-th synchronization, stamped with the simulated
         clock — serving hot-swaps versions while training keeps running.
 
-        ``registry`` is a :class:`~repro_torch.serve.registry.
-        EnsembleRegistry`, whose subscribers (result-cache invalidation)
-        observe every snapshot immediately."""
+        ``registry`` is either a single-host
+        :class:`~repro_torch.serve.registry.EnsembleRegistry` or a sharded
+        :class:`~repro_torch.serve.shard.ShardCluster`: the cluster exposes
+        the same ``publish`` surface and routes every snapshot to the
+        tenant's rendezvous-owning shard, whose subscribers (result-cache
+        invalidation, gossip digests) observe it immediately."""
         assert publish_every >= 1
         self._registry = registry
         self._tenant = tenant
@@ -265,7 +270,21 @@ class FederatedBoostEngine:
         self._syncs_since_publish = 0
 
     def attach_audit(self, audit=None):
-        raise NotImplementedError("contribution audits are not ported yet")
+        """Attach a :class:`repro_torch.obs.ContributionAudit`: every merge
+        in either mode/engine records the contributing client's update
+        magnitude, validation-error delta, staleness, and outcome.  Pure
+        measurement — merge results are bit-identical with or without it.
+        The vectorized fleet profile merges whole windows in one launch
+        (no per-client error deltas), so audits are refused there."""
+        if self._fleet:
+            raise ValueError(
+                "contribution audits need per-entry merges; the fleet "
+                "profile merges vectorized windows — run with "
+                "fleet=False to audit")
+        if audit is None:
+            audit = obs.ContributionAudit()
+        self.audit = audit
+        return audit
 
     @property
     def fleet_profile(self) -> bool:
@@ -274,7 +293,8 @@ class FederatedBoostEngine:
 
     def publish(self, clock: float):
         """The publish() hook: snapshot the current global ensemble into
-        the attached registry; returns the published snapshot, or None when
+        the attached registry/cluster (the owning shard is notified via
+        the routed publish); returns the published snapshot, or None when
         there is nothing to publish yet."""
         if self._registry is None or not self.ensemble.learners:
             return None
@@ -351,6 +371,9 @@ class FederatedBoostEngine:
 
     def _merge(self, entries: List[BufferEntry], sync_round: int,
                compensated: bool, owner: int = -1) -> None:
+        audit = self.audit
+        err_before = (self._val_error()
+                      if (audit is not None and entries) else None)
         for e in entries:
             a = self._server_alpha(e.params)
             tau = max(0, sync_round - e.round_stamp)
@@ -365,6 +388,14 @@ class FederatedBoostEngine:
             self._round_stamps.append(e.round_stamp)
             self._fold_into_margins(e.params, a)
             self.metrics.learners_merged += 1
+            if audit is not None:
+                # _val_error is a pure read of the folded margins, so the
+                # audited run merges bit-identically to the unaudited one
+                err_after = self._val_error()
+                audit.record(owner, magnitude=abs(a),
+                             error_delta=err_before - err_after,
+                             staleness=tau, outcome="merged")
+                err_before = err_after
 
     def _fold_into_margins(self, params, alpha: float) -> None:
         xv, _ = self.data["val"]

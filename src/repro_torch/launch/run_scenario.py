@@ -1,18 +1,21 @@
 """Scenario launcher: run one registered deployment scenario end to end —
-train baseline + enhanced through a behavior trace on the card and check
-the paper band.
+train baseline + enhanced through a behavior trace on the card, check the
+paper band, then replay the publish/request trace into the autoscaled
+serving fleet on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.run_scenario --list
     PYTHONPATH=src python -m repro_torch.launch.run_scenario mobile_100k \\
         --trace legacy --rounds 2 --fleet
+    PYTHONPATH=src python -m repro_torch.launch.run_scenario iot \\
+        --trace gilbert --hosts 3 --serve-duration 2.0
     PYTHONPATH=src python -m repro_torch.launch.run_scenario healthcare \\
         --trace maintenance --no-serve --device cpu
 
 ``--list`` prints the registry (domains, variants, traces, bands); a run
-prints the train metrics against the paper band and exits nonzero when the
-run falls out of it.  The serve replay is not ported: a scenario that
-replays serving needs ``--no-serve``, and ``--hosts``, ``--serve-duration``
-and ``--no-autoscale`` raise.
+prints the train metrics against the paper band and the serving-replay
+report, and exits nonzero when the run falls out of the band.  Serving the
+chain scenario (``blockchain_flchain``) raises: ``chain/*`` is not ported,
+so it needs ``--no-serve``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import argparse
 import sys
 
 from repro_torch import obs
-from repro_torch.sim.harness import UNPORTED_SERVE, run_scenario, summarize
+from repro_torch.sim.harness import run_scenario, summarize
 from repro_torch.sim.scenarios import (SCENARIOS, base_scenarios,
                                        get_scenario, variant_scenarios)
 
@@ -46,7 +49,7 @@ def list_registry() -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="train one registered scenario on the card")
+        description="train -> serve one registered scenario on the card")
     ap.add_argument("scenario", nargs="?", default=None,
                     help="registered scenario name (see --list)")
     ap.add_argument("--list", action="store_true", dest="list_",
@@ -57,15 +60,16 @@ def main(argv=None) -> int:
                     help="boosting rounds (default: scenario's n_rounds)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (default: cuda)")
-    ap.add_argument("--hosts", type=int, default=None,
-                    help="initial serving hosts (serve replay: not ported)")
-    ap.add_argument("--serve-duration", type=float, default=None,
-                    help="serving replay window (serve replay: not ported)")
+                    help="torch device to train and serve on "
+                         "(default: cuda)")
+    ap.add_argument("--hosts", type=int, default=2,
+                    help="initial serving hosts")
+    ap.add_argument("--serve-duration", type=float, default=1.5,
+                    help="serving replay window (simulated seconds)")
     ap.add_argument("--no-serve", action="store_true",
                     help="train + band check only")
     ap.add_argument("--no-autoscale", action="store_true",
-                    help="fixed fleet during the serve replay (not ported)")
+                    help="fixed fleet during the serve replay")
     ap.add_argument("--engine", choices=("events", "loop"),
                     default="events",
                     help="execution core: the event-queue virtual clock "
@@ -89,9 +93,6 @@ def main(argv=None) -> int:
     if args.trace not in sc.traces:
         ap.error(f"scenario {sc.name!r} has no trace {args.trace!r}; "
                  f"choose from: legacy, {', '.join(sc.nontrivial_traces)}")
-    if (args.hosts is not None or args.serve_duration is not None
-            or args.no_autoscale):
-        raise NotImplementedError(UNPORTED_SERVE)
     if args.fleet:
         from dataclasses import replace
         sc = replace(sc, fleet=True)
@@ -100,6 +101,8 @@ def main(argv=None) -> int:
         tracer = obs.configure(trace=True)
     rep = run_scenario(sc, trace=args.trace, seed=args.seed,
                        n_rounds=args.rounds, serve=not args.no_serve,
+                       serve_duration_s=args.serve_duration,
+                       hosts=args.hosts, autoscale=not args.no_autoscale,
                        engine=args.engine, device=args.device)
     print(summarize(rep))
     if tracer is not None:

@@ -15,8 +15,7 @@ helpers the instrumented subsystems call unconditionally:
   :func:`configure`/:func:`tracing` switch on alongside tracing unless
   told otherwise.
 
-The JSONL trace schema is the reference package's, unchanged.  The SLO
-and contribution-audit layers are not part of this package yet.
+The JSONL trace schema is the reference package's, unchanged.
 """
 from __future__ import annotations
 
@@ -145,3 +144,16 @@ def count(name: str, n: float = 1.0, **labels) -> None:
 def observe(name: str, v: float, **labels) -> None:
     """Observe one histogram sample on the global registry."""
     _REGISTRY.histogram(name, **labels).observe(v)
+
+
+# SLO + audit layers consume the helpers above, so they import last (they
+# only touch the module object at call time, never during import).
+from repro_torch.obs.audit import AuditFlag, ContributionAudit  # noqa: E402
+from repro_torch.obs.slo import (AlertEvent, AlertLog,  # noqa: E402
+                                 BurnRateRule, ErrorBudget, SLObjective,
+                                 SLOMonitor)
+
+__all__ += [
+    "AlertEvent", "AlertLog", "AuditFlag", "BurnRateRule",
+    "ContributionAudit", "ErrorBudget", "SLObjective", "SLOMonitor",
+]

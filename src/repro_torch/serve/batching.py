@@ -24,9 +24,10 @@ unbounded backlog that would blow the latency SLO for everyone.
 """
 from __future__ import annotations
 
+import itertools
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, List, Optional
+from typing import Deque, Iterator, List, Optional
 
 import numpy as np
 
@@ -60,7 +61,10 @@ class BatchConfig:
 class Request:
     """One prediction request: a single feature vector for its tenant,
     kept on the host until the batch that serves it is packed.  ``ctx`` is
-    the submitter's trace context (None when tracing is off)."""
+    the submitter's trace context (None when tracing is off); it rides the
+    queue — surviving :meth:`MicroBatchQueue.requeue` across a scale-in
+    reroute — so the completion on whichever host finally serves the
+    request links back into the submit trace."""
     rid: int
     tenant: str
     x: np.ndarray                # (F,) f32 feature vector
@@ -105,10 +109,15 @@ class MicroBatchQueue:
     budgets and batch caps (the reference's policy-table path) are not
     ported yet."""
 
-    def __init__(self, cfg: BatchConfig):
+    def __init__(self, cfg: BatchConfig,
+                 rid_counter: Optional[Iterator[int]] = None):
+        """``rid_counter`` lets several queues share one id space — the
+        sharded fleet passes a common counter so a response's rid is unique
+        across hosts, not just within one."""
         self.cfg = cfg
         self._q: Deque[Request] = deque()
-        self._next_rid = 0
+        self._rids = (rid_counter if rid_counter is not None
+                      else itertools.count())
         self.rejected = 0
 
     def __len__(self) -> int:
@@ -125,13 +134,25 @@ class MicroBatchQueue:
         if len(self._q) >= self.cfg.queue_budget:
             self.rejected += 1
             return None
-        rid = self._next_rid
-        self._next_rid += 1
-        req = Request(rid=rid, tenant=tenant,
+        req = Request(rid=next(self._rids), tenant=tenant,
                       x=np.asarray(x, np.float32), t_submit=float(now),
                       ctx=ctx)
         self._q.append(req)
         return req
+
+    def requeue(self, req: Request) -> None:
+        """Re-admit a request rerouted from a drained (scaled-in) host.
+        Admission was already granted once, so the budget check is
+        skipped — dropping an accepted request is strictly worse than a
+        transiently over-budget queue.  The request keeps its rid and
+        original submit time (its latency keeps accruing across the move)."""
+        self._q.append(req)
+
+    def pop_all(self) -> List[Request]:
+        """Drain every queued request (scale-in hand-off), FIFO order."""
+        out = list(self._q)
+        self._q.clear()
+        return out
 
     def oldest_t(self) -> Optional[float]:
         return self._q[0].t_submit if self._q else None

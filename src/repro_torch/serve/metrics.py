@@ -9,7 +9,7 @@ implementation: every per-tenant counter is a registry ``Counter``/
 bounded-reservoir estimator in the repo — keep every sample until full,
 then every 8th under a sweeping cursor).  Each :class:`ServeMetrics` owns a
 *private* registry, because per-host serving counters must merge per fleet
-(the sharded server, not ported yet) rather than blending into the
+(``ShardedEnsembleServer.report``) rather than blending into the
 process-wide namespace; pass ``registry=obs.get_registry()`` to publish a
 single server's counters globally.
 
@@ -57,6 +57,16 @@ class TenantMetrics:
 
     def record_rejected(self) -> None:
         self._rejected.inc()
+
+    def merge_from(self, other: "TenantMetrics") -> None:
+        """Fold another host's counters for the *same* tenant in (fleet
+        report merging): counters add, the latency histogram extends with
+        retained samples + stream totals, version merges by max."""
+        self._completed.inc(other._completed.value)
+        self._rejected.inc(other._rejected.value)
+        self._staleness.inc(other._staleness.value)
+        self._lat.extend(other._lat)
+        self._version.max(other._version.value)
 
     # --------------------------------------------------------------- reads
     @property

@@ -108,7 +108,8 @@ class EnsembleRegistry:
     def subscribe(self, fn: Callable[[EnsembleSnapshot], None]
                   ) -> Callable[[], None]:
         """Register ``fn(snapshot)`` to run after every snapshot that becomes
-        a tenant's latest.  Callbacks run outside the registry lock
+        a tenant's latest — local publishes, gossip ingests, and concurrent-
+        version replacements alike.  Callbacks run outside the registry lock
         (a subscriber may read the registry), in subscription order; the
         result cache invalidates through exactly this hook.  Returns a
         zero-arg unsubscribe handle (idempotent) so short-lived servers
@@ -179,6 +180,14 @@ class EnsembleRegistry:
         self._notify(snap)
         return snap
 
+    # ---------------------------------------------------- gossip interface
+    def digest(self) -> Dict[str, Tuple[int, str]]:
+        """Version vector: tenant -> (latest version, content fingerprint).
+        Anti-entropy peers exchange digests and pull only what they miss."""
+        with self._lock:
+            latest = {t: h[-1] for t, h in self._snaps.items() if h}
+        return {t: (s.version, s.fingerprint) for t, s in latest.items()}
+
     def ingest(self, snap: EnsembleSnapshot) -> bool:
         """Adopt a snapshot made elsewhere (another host's, or one carried
         across from the JAX package), *keeping its version stamp* (unlike
@@ -200,6 +209,22 @@ class EnsembleRegistry:
             self._notify(snap)
         return True
 
+    def replace_latest(self, tenant: str,
+                       snap: EnsembleSnapshot) -> EnsembleSnapshot:
+        """Swap the tenant's latest snapshot for a concurrent same-version
+        snapshot the gossip reconciler ranked higher.  The version number
+        must match the current latest (reconciliation never moves the
+        version vector backwards)."""
+        with self._lock:
+            hist = self._snaps.get(tenant)
+            if not hist or hist[-1].version != snap.version:
+                raise ValueError(
+                    f"replace_latest({tenant!r}): version {snap.version} "
+                    "is not the tenant's latest")
+            hist[-1] = snap
+        self._notify(snap)
+        return snap
+
     # --------------------------------------------------------------- reads
     def latest(self, tenant: str) -> Optional[EnsembleSnapshot]:
         with self._lock:
@@ -219,6 +244,12 @@ class EnsembleRegistry:
     def tenants(self) -> List[str]:
         with self._lock:
             return sorted(self._snaps)
+
+    def history(self, tenant: str) -> List[EnsembleSnapshot]:
+        """The retained snapshot window, oldest first (gossip peers pull
+        whole windows so cross-host ``get(tenant, version)`` works too)."""
+        with self._lock:
+            return list(self._snaps.get(tenant, ()))
 
     def version_count(self, tenant: str) -> int:
         """Total versions ever published for a tenant (not history length)."""

@@ -237,9 +237,11 @@ def test_counters_match_reference_table(pair):
 
 
 def test_engine_refuses_unported_profiles():
-    """Contribution audits are still refused; the fleet profile, which this
-    test once saw refused too, now runs and gives the per-client profile's
-    accounting (``tests/test_torch_fleet.py`` holds it to the reference)."""
+    """The fleet profile, which this test once saw refused, runs and gives
+    the per-client profile's accounting (``tests/test_torch_fleet.py``
+    holds it to the reference).  Contribution audits, once refused too,
+    attach to the per-client profile and are refused on the fleet's, as in
+    the reference (``tests/test_torch_slo_audit.py`` holds them to it)."""
     rng = np.random.RandomState(0)
     x = rng.randn(8, 3).astype(np.float32)
     y = np.where(rng.rand(8) < 0.5, 1.0, -1.0).astype(np.float32)
@@ -254,5 +256,8 @@ def test_engine_refuses_unported_profiles():
         for k in COUNTERS + ("sim_time_s",):
             assert getattr(fm, k) == getattr(pm, k), (mode, k)
     eng = FederatedBoostEngine(cfg, data, "enhanced", device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.attach_audit()
+    audit = eng.attach_audit()
+    assert eng.run().learners_merged == audit.recorded > 0
+    with pytest.raises(ValueError, match="fleet"):
+        FederatedBoostEngine(cfg, data, "enhanced", fleet=True,
+                             device="cpu").attach_audit()

@@ -33,7 +33,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.sim.scenarios", "repro_torch.sim.harness",
             "repro_torch.launch.run_scenario", "repro_torch.launch.serve",
             "repro_torch.models.transformer",
-            "repro_torch.configs.registry"} <= set(mods)
+            "repro_torch.configs.registry", "repro_torch.serve.shard",
+            "repro_torch.serve.autoscale", "repro_torch.obs.slo",
+            "repro_torch.obs.audit"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -71,7 +73,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import Model
-    from repro_torch.serve import BatchEvaluator, EnsembleRegistry
+    from repro_torch.serve import (BatchEvaluator, EnsembleRegistry,
+                                   ShardCluster, ShardedEnsembleServer)
+    from repro_torch.sim.harness import run_scenario
     import numpy as np
     x = np.zeros((8, 2), np.float32)
     y = np.ones(8, np.float32)
@@ -81,12 +85,17 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         assert FederatedBoostEngine(cfg, data, "baseline").device.type == "cuda"
         assert BatchEvaluator(EnsembleRegistry()).device.type == "cuda"
+        assert ShardedEnsembleServer(ShardCluster(2)).device.type == "cuda"
         assert Model(lm).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="cuda"):
         FederatedBoostEngine(cfg, data, "baseline")
     with pytest.raises(RuntimeError, match="cuda"):
         BatchEvaluator(EnsembleRegistry())
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardedEnsembleServer(ShardCluster(2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_scenario("iot", trace="gilbert", n_rounds=1)
     # generate runs on its model's device; the serving CLI's default model
     # is on the card
     with pytest.raises(RuntimeError, match="cuda"):

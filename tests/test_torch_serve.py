@@ -185,6 +185,27 @@ def test_packed_batch_lanes_bit_equal(trained):
 
 
 def test_unported_serving_paths_raise():
-    with pytest.raises(NotImplementedError):
+    """The per-(tenant, host) policy table is still unported: both servers
+    refuse it.  Without it the sharded fleet serves."""
+    from repro_torch.serve import (GossipConfig, ShardCluster,
+                                   ShardedEnsembleServer)
+    with pytest.raises(NotImplementedError, match="policy_table"):
         EnsembleServer(EnsembleRegistry(), policy_table=object(),
                        device="cpu")
+    cluster = ShardCluster(2, GossipConfig(seed=0))
+    with pytest.raises(NotImplementedError, match="policy_table"):
+        ShardedEnsembleServer(cluster, policy_table=object(), device="cpu")
+    rng = np.random.RandomState(0)
+    p = np.zeros((3, 4), np.float32)
+    p[:, 1] = rng.randn(3)
+    p[:, 2] = 1.0
+    cluster.publish_packed(TENANT, p, np.ones(3, np.float32))
+    cluster.run_until_quiescent()
+    server = ShardedEnsembleServer(cluster, BatchConfig(),
+                                   service_model=SERVICE, device="cpu")
+    ok, out = server.submit(TENANT, rng.randn(4).astype(np.float32), 0.0)
+    out += server.drain()
+    assert ok and len(out) == 1 and out[0].snapshot_version == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ShardedEnsembleServer(cluster)

@@ -179,12 +179,33 @@ def test_result_row_equal_reference():
 
 
 def test_run_scenario_trains_and_refuses_the_unported_replay():
-    with pytest.raises(NotImplementedError, match="serve/shard.py"):
-        tharness.run_scenario("healthcare", device="cpu")
+    """Every scenario that replays serving now serves, but the chain
+    scenario, whose replay needs the unported ``chain/*``: it still
+    raises, and trains with ``serve=False``."""
     with pytest.raises(NotImplementedError, match="chain"):
-        tharness.run_scenario("blockchain_flchain", device="cpu")
+        tharness.run_scenario("blockchain_flchain", n_rounds=2,
+                              device="cpu")
+    chain = tharness.run_scenario("blockchain_flchain", n_rounds=2,
+                                  serve=False, device="cpu")
+    assert chain.serve is None and chain.enhanced.learners_merged > 0
+    served = [n for n, sc in tscen.SCENARIOS.items()
+              if sc.serve_replay and not sc.chain]
+    assert "blockchain_flchain" not in served and "iot" in served
+    assert served == [n for n, sc in jscen.SCENARIOS.items()
+                      if sc.serve_replay and not sc.chain]
+    rep = tharness.run_scenario("healthcare", trace="maintenance",
+                                n_rounds=3, serve_duration_s=0.5,
+                                device="cpu")
+    assert set(rep.serve) == {
+        "offered", "offline_suppressed", "completed", "rejected", "p50_ms",
+        "p99_ms", "throughput_rps", "mean_batch", "cache_hit_rate",
+        "snapshot_version", "hosts_final", "scale_outs", "scale_ins",
+        "rerouted", "killed_host", "slo"}
+    assert rep.serve["completed"] > 0
+    assert rep.serve["snapshot_version"] == rep.enhanced.snapshots_published
     rep = tharness.run_scenario("iot", trace="gilbert", n_rounds=3,
                                 serve=False, device="cpu")
+    assert rep.serve is None
     assert rep.row["comm_down"] != 0.0
     assert rep.within_band == (not rep.band_failures)
     assert "scenario iot · trace gilbert" in tharness.summarize(rep)
@@ -194,9 +215,24 @@ def test_run_scenario_cli(capsys):
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
     assert "mobile_100k" in out and "blockchain_flchain" in out
-    with pytest.raises(NotImplementedError, match="serve"):
-        cli.main(["iot", "--hosts", "3", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="chain"):
+        cli.main(["blockchain_flchain", "--rounds", "2", "--device", "cpu"])
+    rc = cli.main(["iot", "--trace", "gilbert", "--rounds", "3", "--hosts",
+                   "3", "--serve-duration", "0.5", "--device", "cpu"])
+    assert rc in (0, 1)
+    out = capsys.readouterr().out
+    assert "scenario iot · trace gilbert" in out
+    assert "serve:" in out and "hosts 3 (0 out / 0 in" in out
+    rc = cli.main(["healthcare", "--trace", "maintenance", "--rounds", "3",
+                   "--serve-duration", "0.5", "--no-autoscale", "--device",
+                   "cpu"])
+    assert rc in (0, 1)
+    out = capsys.readouterr().out
+    assert "scenario healthcare · trace maintenance" in out
+    assert "serve:" in out and "hosts 2 (0 out / 0 in" in out
     rc = cli.main(["healthcare", "--trace", "maintenance", "--rounds", "3",
                    "--no-serve", "--device", "cpu"])
     assert rc in (0, 1)
-    assert "scenario healthcare · trace maintenance" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "scenario healthcare · trace maintenance" in out
+    assert "serve:" not in out
