@@ -86,7 +86,26 @@ nonzero (there is no CPU fall-back):
    wall, the vote's event time at its commonest launch shape); the JAX
    package's autoscale churn traffic on the card, equal to its recorded
    run and loss-free; and the enhanced run again with tracing on and an
-   audit attached, bit-equal to the first.
+   audit attached, bit-equal to the first;
+12. the server-less FLchain mode: blockchain_flchain/block_delay at its
+   registered size (5,000 x 32, 8 clients, 20 rounds) through
+   ``run_scenario`` on the card, the enhanced run committing its deltas to
+   a chain of record that a 2-host chain-backed fleet folds, the replay
+   (1.5 s, autoscaled) killing the committee leader at the middle
+   arrival: the report equal to the JAX package's recorded run but for
+   the version (the tenant's confirmed folds) and the killed host (the
+   leader at the kill), held to the card's own chain, with the training
+   counters and the CPU's own run's first split printed; the chain's
+   guarantees (hash links, re-minting, every host folding the committer's
+   fingerprint, a host added after the kill folding it from the chain
+   alone, no accepted request lost); the chain carried to the CPU
+   (``convert.chain_from_numpy``), re-minted from genesis and replayed on
+   the plain path (rid, tenant and version equal, margins within rtol/atol
+   1e-5); the enhanced run traced, clean under the port's
+   ``obs_report.check_trace``, its commits stitched to ``chain.aggregate``
+   on two nodes or more and its hashes the untraced run's; and
+   edge_vision enhanced with eq. 1 and the two beyond-paper interval
+   controllers, every interval within [i_min, i_max].
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
 path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
@@ -95,8 +114,8 @@ bf16 at the path's shape, a large one and d 128, and the path's own
 ``scaled_dot_product_attention`` timed beside it; it counts the tensor-core
 instructions (HGMMA, HMMA) of each flash kernel in the built library's SASS.
 Launch counts are zeroed just before phase 4 and read just after phase 5,
-and zeroed again just before each later path (7.2, 8, 9, 10, 11) and read
-just after it (phase 11's main path is its step 1).
+and zeroed again just before each later path (7.2, 8, 9, 10, 11, 12) and
+read just after it (the main path of phases 11 and 12 is their step 1).
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1463,17 +1482,19 @@ def lockstep_on_cpu(cfg, data, mode, fits, label):
     return m, len(ties)
 
 
-def first_split(cfg, data, mode, card_fits):
+def first_split(cfg, data, mode, card_fits, **engine_kw):
     """The CPU's own run beside the card's: None where every pick agrees,
     else (fit index, exact gap between the card's and the CPU's pick on
     the card's inputs, the largest relative difference of the two
     distributions there).  Both sum stump errors in f64, so the runs split
     only where the devices' exp and log, moving the distribution in its
-    last bits, turn a near-tie."""
+    last bits, turn a near-tie.  ``engine_kw`` goes to the CPU's engine
+    (a scenario's behaviors)."""
     from repro_torch.core import FederatedBoostEngine
     from repro_torch.models.weak import stump_thresholds
     cpu = FitLog()
-    FederatedBoostEngine(cfg, data, mode, weak=cpu.spec, device="cpu").run()
+    FederatedBoostEngine(cfg, data, mode, weak=cpu.spec, device="cpu",
+                         **engine_kw).run()
     for i, ((gx, gy, gw, gp), (cx, _, cw, cp)) in enumerate(
             zip(card_fits, cpu.fits)):
         if _key(gp) != _key(cp) or not torch.equal(gx, cx):
@@ -3048,6 +3069,341 @@ def serve_fleet() -> dict:
         f"{len(audit.flags())} flags ({time.perf_counter() - t0:.2f} s)")
     return launches
 
+# ------------------------------------------------------------ phase 12
+CHAIN_SCENARIO, CHAIN_TRACE = "blockchain_flchain", "block_delay"
+# The JAX package's run of step 1's call (the registered blockchain domain,
+# 5,000 samples x 32 features, 8 clients, 20 rounds, 2 hosts, 1.5 s,
+# autoscale on), on a CPU:
+#   PYTHONPATH=src python -c "from repro.sim.harness import run_scenario;
+#   r = run_scenario('blockchain_flchain', trace='block_delay', seed=0);
+#   print(r.serve, vars(r.baseline), vars(r.enhanced))"
+# The report's snapshot_version and killed_host follow the chain the
+# enhanced run minted (the number of blocks and so the committee's epoch
+# at the kill), so they are held to the card's own chain (CHAIN_MINTED
+# is the JAX package's, printed beside); the other fields follow the
+# behavior models (seed + 101), the request RNG (seed * 31 + 7), the
+# service model and which host dies, and are held to CHAIN_REFERENCE
+# wherever the card's chain kills the host the JAX package's kills.
+CHAIN_REFERENCE = {
+    "offered": 434, "offline_suppressed": 10, "completed": 434,
+    "rejected": 0, "p50_ms": 2.6000000000000467, "p99_ms": 4.793700699278869,
+    "throughput_rps": 289.39761369402913, "mean_batch": 1.3231707317073171,
+    "cache_hit_rate": 0.14055299539170507, "hosts_final": 2,
+    "scale_outs": 1, "scale_ins": 1, "rerouted": 0,
+    "slo": {"good": 434, "bad": 0, "budget_remaining": 1.0,
+            "alerts_fired": 0, "alerts_active": 0}}
+CHAIN_MINTED = {"snapshot_version": 33, "killed_host": "host-0",
+                "height_trained": 31, "height_served": 33,
+                "tip": "098beec7cf2e94c0349d67b2"}
+# the same run's training counters: the baseline's do not depend on what
+# is learned and must be the card's; the enhanced ones are printed beside
+CHAIN_COUNTERS = {
+    "baseline": dict(uplink_bytes=44800, downlink_bytes=61440,
+                     n_messages=320, n_syncs=20, learners_merged=160,
+                     snapshots_published=0, rounds_unavailable=4,
+                     sim_time_s=103.13430626357957),
+    "enhanced": dict(uplink_bytes=12544, downlink_bytes=25440,
+                     n_messages=68, n_syncs=34, learners_merged=160,
+                     snapshots_published=17, rounds_unavailable=3,
+                     sim_time_s=33.59398657776881,
+                     final_test_error=0.2186666578054428)}
+CONTROLLER_DOMAIN, CONTROLLER_ROUNDS = "edge_vision", 25
+
+
+def chain_blocks(chain):
+    return [(b.height, b.hash, [c.fingerprint for c in b.commits])
+            for b in chain.blocks]
+
+
+def chain_path() -> dict:
+    """Phase 12: the server-less FLchain mode on the card.  (1)
+    ``run_scenario`` on blockchain_flchain/block_delay at its registered
+    size: both modes trained on the card, the enhanced run committing to
+    a chain-backed fleet, the replay killing the committee leader halfway;
+    held to the JAX package's report; (2) the chain's guarantees on that
+    run; (3) the chain carried to the CPU, re-minted from genesis and
+    replayed on the CPU's plain path; (4) the enhanced run again, traced,
+    checked by the port's trace reporter; (5) the beyond-paper interval
+    controllers on edge_vision.  Returns step 1's launch counts."""
+    from repro_torch import obs
+    from repro_torch.chain import ChainCluster
+    from repro_torch.configs.paper_fedboost import FedBoostConfig
+    from repro_torch.convert import chain_from_numpy, chain_to_numpy
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.core.controllers import BudgetScheduler, TrendScheduler
+    from repro_torch.data import make_domain_data
+    from repro_torch.kernels import ops
+    from repro_torch.launch import obs_report
+    from repro_torch.serve import GossipConfig, ShardedEnsembleServer
+    from repro_torch.sim import harness
+    from repro_torch.sim.scenarios import DOMAINS, get_scenario
+
+    sc = get_scenario(CHAIN_SCENARIO)
+    seed, duration = 0, 1.5
+    captured, fitlogs, kills, submits = {}, [], [], [0]
+    saved = {k: getattr(harness, k) for k in (
+        "replay_serve", "_replay", "FederatedBoostEngine", "ChainCluster",
+        "ShardedEnsembleServer")}
+
+    def recording_replay(sc_, cluster, data, trace, **kw):
+        captured.update(cluster=cluster, data=data,
+                        state=chain_to_numpy(cluster))
+        return saved["replay_serve"](sc_, cluster, data, trace, **kw)
+
+    def recording_inner(sc_, server, arrivals, offline, duration_s,
+                        autoscale):
+        summary, responses = saved["_replay"](sc_, server, arrivals,
+                                              offline, duration_s, autoscale)
+        captured.update(arrivals=arrivals, offline=offline,
+                        responses=responses)
+        return summary, responses
+
+    class RecordingEngine(FederatedBoostEngine):
+        def __init__(self, *a, **kw):
+            fitlogs.append(FitLog())
+            super().__init__(*a, weak=fitlogs[-1].spec, **kw)
+
+    class RecordingChain(ChainCluster):
+        def kill(self, host_id):
+            kills.append((host_id, self.leader(), self.host_ids(),
+                          self.chain.height, submits[0]))
+            super().kill(host_id)
+
+    class CountingServer(ShardedEnsembleServer):
+        def submit(self, tenant, x, now):
+            submits[0] += 1
+            return super().submit(tenant, x, now)
+
+    t0 = time.perf_counter()
+    harness.replay_serve, harness._replay = recording_replay, recording_inner
+    harness.FederatedBoostEngine = RecordingEngine
+    harness.ChainCluster = RecordingChain
+    harness.ShardedEnsembleServer = CountingServer
+    try:
+        rep = harness.run_scenario(CHAIN_SCENARIO, trace=CHAIN_TRACE,
+                                   seed=seed, device=CARD)
+    finally:
+        for k, v in saved.items():
+            setattr(harness, k, v)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    s, cluster = rep.serve, captured["cluster"]
+    chain, state = cluster.chain, captured["state"]
+    fits = sum(len(f.fits) for f in fitlogs)
+    log(f"chain 12.1: run_scenario {CHAIN_SCENARIO} {CHAIN_TRACE} seed "
+        f"{seed} on {CARD} ({sc.domain.n_samples}x{sc.domain.n_features}, "
+        f"{sc.domain.n_clients} clients, {sc.n_rounds} rounds, 2 hosts, "
+        f"{duration} s replay): {wall:.2f} s with data; {fits} fits; "
+        f"launches stump_scan {launches['stump_scan']} stump_vote_batched "
+        f"{launches['stump_vote_batched']} (all {launches})")
+    for line in harness.summarize(rep).splitlines():
+        log(f"chain 12.1: {line}")
+    log(f"chain 12.1: serve {json.dumps(s)}")
+    if launches["stump_scan"] != fits or fits <= 0:
+        raise AssertionError(f"chain: stump_scan launches "
+                             f"{launches['stump_scan']} != fits {fits}")
+    if launches["stump_vote_batched"] <= 0:
+        raise AssertionError("chain: kernel stump_vote_batched never "
+                             "launched")
+    # the card's own chain: the served version is the tenant's folds, the
+    # killed host the leader when the kill came, at the middle arrival
+    folds = sum(any(c.tenant == sc.name for c in b.commits)
+                for b in chain.confirmed_blocks())
+    if len(kills) != 1:
+        raise AssertionError(f"chain: {len(kills)} kills, not one")
+    killed, leader, up, height, at = kills[0]
+    middle = len(captured["arrivals"]) // 2
+    if (s["snapshot_version"] != folds or s["killed_host"] != killed
+            or killed != (leader if leader in up else up[0])
+            or at != middle):
+        raise AssertionError(
+            f"chain: served v{s['snapshot_version']} for {folds} folds; "
+            f"killed {s['killed_host']!r}/{killed!r}, leader {leader!r} of "
+            f"{up} at submit {at} (middle {middle})")
+    log(f"chain 12.1: snapshot v{s['snapshot_version']} = the tenant's "
+        f"{folds} confirmed folds; killed {killed} = the committee leader "
+        f"at arrival {at} of {len(captured['arrivals'])} (chain height "
+        f"{height}, up {up}); JAX package's: "
+        f"v{CHAIN_MINTED['snapshot_version']}, "
+        f"{CHAIN_MINTED['killed_host']}; chain height after training "
+        f"{len(state['blocks']) - 1} (JAX {CHAIN_MINTED['height_trained']}),"
+        f" after the replay {chain.height} (JAX "
+        f"{CHAIN_MINTED['height_served']}), tip {chain.blocks[-1].hash} "
+        f"(JAX {CHAIN_MINTED['tip']})")
+    if killed == CHAIN_MINTED["killed_host"]:
+        replay_equal(s, CHAIN_REFERENCE, "chain 12.1")
+        log("chain 12.1: every other field equals the JAX package's report")
+    else:
+        log("chain 12.1: the card's chain killed another host than the JAX "
+            "package's: the report is held to the CPU replay of the card's "
+            "chain (12.3)")
+    for mode, want in CHAIN_COUNTERS.items():
+        m = getattr(rep, mode)
+        got = {k: getattr(m, k) for k in want}
+        diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        log(f"chain 12.1: {mode} counters {json.dumps(got)}; JAX package's "
+            + ("equal" if not diff else f"differ at {diff}"))
+        if mode == "baseline" and diff:
+            raise AssertionError(f"chain: baseline counters differ from "
+                                 f"the JAX package's: {diff}")
+    data = captured["data"]
+    for mode, flog in zip(("baseline", "enhanced"), fitlogs):
+        split = first_split(sc.fedboost_config(seed=seed), data, mode,
+                            flog.on_cpu(),
+                            behavior_for=sc.behavior_for(CHAIN_TRACE, seed),
+                            fleet=sc.fleet)
+        log(f"chain 12.1: {mode}: the cpu's own run "
+            + ("picks as the card's at every fit" if split is None else
+               f"splits from the card's at fit #{split[0]}: exact gap "
+               f"{split[1]:.3g} on the card's inputs, distributions "
+               f"{split[2]:.3g} apart (relative)"))
+
+    # (2) the chain's guarantees on the card's run
+    t0 = time.perf_counter()
+    if not chain.verify() or chain.replay_hashes() != \
+            chain.confirmed_hashes():
+        raise AssertionError("chain 12.2: hash links or replay broken")
+    want_fp = cluster._committer.latest(sc.name).fingerprint
+    up_hosts = cluster.host_ids()
+    fps = {h: cluster.hosts[h].registry.latest(sc.name).fingerprint
+           for h in up_hosts}
+    if set(fps.values()) != {want_fp}:
+        raise AssertionError(f"chain 12.2: host folds {fps} != the "
+                             f"committer's {want_fp}")
+    history = [(x.version, x.fingerprint)
+               for x in cluster._committer.history(sc.name)]
+    late = cluster.add_host("after-kill", now=duration)
+    late_history = [(x.version, x.fingerprint)
+                    for x in late.registry.history(sc.name)]
+    if late_history != history:
+        raise AssertionError(f"chain 12.2: a host added after the kill "
+                             f"folds {late_history} != {history}")
+    responses = captured["responses"]
+    rids = [r.rid for r in responses]
+    if (len(rids) != s["completed"] or len(set(rids)) != len(rids)
+            or s["completed"] + s["rejected"] != s["offered"]):
+        raise AssertionError(f"chain 12.2: {len(rids)} answers "
+                             f"({len(set(rids))} unique) for "
+                             f"{s['completed']} completed")
+    log(f"chain 12.2: {chain.height} blocks verify and re-mint from genesis "
+        f"to the confirmed hashes; up hosts {up_hosts} (the scale-out "
+        f"warmed from the chain after the kill) fold the committer's "
+        f"fingerprint {want_fp}; a host added after the replay folds the "
+        f"same {len(history)} retained versions from the chain alone; "
+        f"{len(rids)} accepted, {len(rids)} answered once, none lost "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # (3) the card's chain on the CPU: re-minted, then replayed
+    t0 = time.perf_counter()
+    copy = chain_from_numpy(state, GossipConfig(seed=seed))
+    want_hashes = [b["hash"] for b in state["blocks"][1:]]
+    if copy.chain.replay_hashes() != want_hashes:
+        raise AssertionError("chain 12.3: re-minted hashes differ")
+    copy.run_until_quiescent()
+    copy.rebase_clock(0.0)
+    server = ShardedEnsembleServer(copy, harness.SERVE_BATCH,
+                                   service_model=harness._service_model,
+                                   device="cpu")
+    summary, cpu_responses = harness._replay(
+        sc, server, captured["arrivals"], captured["offline"], duration,
+        True)
+    replay_equal(summary, s, "chain 12.3 cpu")
+    if [(r.rid, r.tenant, r.snapshot_version) for r in responses] != \
+            [(r.rid, r.tenant, r.snapshot_version) for r in cpu_responses]:
+        raise AssertionError("chain 12.3: card and cpu responses differ")
+    if chain_blocks(copy.chain) != chain_blocks(chain):
+        raise AssertionError("chain 12.3: the cpu replay ends on another "
+                             "chain")
+    worst = max(abs(g.margin - c.margin)
+                for g, c in zip(responses, cpu_responses))
+    far = sum(abs(g.margin - c.margin) > TOL + TOL * abs(c.margin)
+              for g, c in zip(responses, cpu_responses))
+    log(f"chain 12.3: the card's chain carried to the cpu "
+        f"(convert.chain_from_numpy): {len(want_hashes)} block hashes "
+        f"re-minted from genesis equal; {len(captured['arrivals'])} "
+        f"arrivals replayed on the cpu's plain path: report equal to the "
+        f"card's, killed {summary['killed_host']}, {len(cpu_responses)} "
+        f"responses rid/tenant/version equal, max |margin diff| "
+        f"{worst:.3g} ({time.perf_counter() - t0:.2f} s)")
+    if far:
+        raise AssertionError(f"chain 12.3: {far} margins differ beyond "
+                             f"rtol/atol {TOL} (max {worst})")
+
+    # (4) the enhanced run again, traced
+    t0 = time.perf_counter()
+    with obs.tracing() as tracer:
+        traced = ChainCluster(2, GossipConfig(seed=seed))
+        eng = FederatedBoostEngine(
+            sc.fedboost_config(seed=seed), data, "enhanced",
+            behavior_for=sc.behavior_for(CHAIN_TRACE, seed), fleet=sc.fleet,
+            device=CARD)
+        eng.attach_registry(traced, sc.name, publish_every=2)
+        eng.run()
+        torch.cuda.synchronize()
+        spans, meta = tracer.finished(), tracer.meta()
+    problems = obs_report.check_trace(spans, meta)
+    commits = [x for x in spans if x["name"] == "chain.commit"]
+    reach = []
+    for c in commits:
+        st = obs_report.stitch_trace(spans, c["trace"])
+        reach.append(len({x["host"] for x in st["members"]
+                          if x["name"] == "chain.aggregate"}))
+    minted = [b.hash for b in traced.chain.blocks]
+    same = minted == [b["hash"] for b in state["blocks"]]
+    log(f"chain 12.4: traced enhanced run on {CARD}: {len(spans)} spans "
+        f"(dropped {meta['dropped']}), check_trace problems "
+        f"{len(problems)}; {len(commits)} chain.commit traces, each "
+        f"stitched to chain.aggregate on {min(reach, default=0)}-"
+        f"{max(reach, default=0)} nodes; {len(minted) - 1} blocks minted, "
+        f"hashes {'identical to' if same else 'DIFFERENT from'} the "
+        f"untraced run's ({time.perf_counter() - t0:.2f} s)")
+    for line in problems[:10]:
+        log(f"chain 12.4: {line}")
+    if problems or not commits or min(reach) < 2 or not same:
+        raise AssertionError("chain 12.4: the traced chain run failed its "
+                             "checks")
+
+    # (5) the beyond-paper interval controllers on the card
+    t0 = time.perf_counter()
+    dom = DOMAINS[CONTROLLER_DOMAIN]
+    cdata = make_domain_data(dom, seed=0)
+    cfg = FedBoostConfig(n_clients=dom.n_clients, n_rounds=CONTROLLER_ROUNDS,
+                         straggler_factor=dom.straggler_factor,
+                         dropout_prob=dom.dropout_prob,
+                         link_mbps=dom.link_mbps,
+                         balanced_init=dom.label_imbalance < 0.4)
+    lo, hi = cfg.scheduler.i_min, cfg.scheduler.i_max
+    for label, make in (("eq. 1", None), ("trend", TrendScheduler),
+                        ("budget", BudgetScheduler)):
+        eng = FederatedBoostEngine(cfg, cdata, "enhanced", device=CARD)
+        if make is not None:
+            eng.scheduler = make(cfg.scheduler)
+        seen = []
+        observe = eng.scheduler.observe
+
+        def recorded(err, observe=observe, sched=eng.scheduler):
+            out = observe(err)
+            seen.append((out, sched.interval))
+            return out
+        eng.scheduler.observe = recorded
+        m = eng.run()
+        torch.cuda.synchronize()
+        bad = [x for x in seen if not (lo <= x[0] <= hi and
+                                       lo <= x[1] <= hi)]
+        log(f"chain 12.5: {CONTROLLER_DOMAIN} enhanced {CONTROLLER_ROUNDS} "
+            f"rounds on {CARD}, {label:>6}: syncs {m.n_syncs} bytes "
+            f"{m.total_bytes} msgs {m.n_messages} test_err "
+            f"{m.final_test_error:.4f} val_err {m.final_val_error:.4f}; "
+            f"intervals {min(x[0] for x in seen)}-{max(x[0] for x in seen)}"
+            f" over {len(seen)} syncs")
+        if bad or len(seen) != m.n_syncs:
+            raise AssertionError(f"chain 12.5 {label}: intervals outside "
+                                 f"[{lo}, {hi}]: {bad[:5]}")
+    log(f"chain 12.5: every interval within [{lo}, {hi}] at every sync "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3158,6 +3514,16 @@ def main() -> int:
         f"of phase 11: {dict(ops.LAUNCHES)}; phase 11 took "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # the chain path: counts zeroed just before phase 12, read after its
+    # step 1 (the chain scenario through run_scenario) and after it ends
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    chain_launches = chain_path()
+    torch.cuda.synchronize()
+    log(f"launches on the chain path (step 1): {chain_launches}; in all "
+        f"of phase 12: {dict(ops.LAUNCHES)}; phase 12 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
     kernels = []
     MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "kernel_ms", "shape")
@@ -3170,7 +3536,8 @@ def main() -> int:
             bound_ms=main_r["bound_ms"], bound_by=main_r["bound_by"],
             library_ms=main_r["library_ms"], kernel_ms=main_r["kernel_ms"],
             shape=main_r["shape"],
-            **({"replay_launches": replay_launches[name]}
+            **({"replay_launches": replay_launches[name],
+                "chain_launches": chain_launches[name]}
                if name in ("stump_scan", "stump_vote_batched") else {}),
             **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()

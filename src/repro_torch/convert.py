@@ -1,11 +1,12 @@
-"""Carry learners, snapshots, clusters, data and LM params across from
-numpy.
+"""Carry learners, snapshots, clusters, chains, data and LM params across
+from numpy.
 
 Both packages compute on the same inputs when each is handed the same
 numpy arrays: the JAX package's learners, snapshots, a cluster's registry
-windows, domain data and LM params turn into numpy with ``np.asarray``
-(``jax.tree.map`` for a params pytree), and these functions turn numpy
-into this package's equivalents.
+windows, a chain cluster's state, domain data and LM params turn into
+numpy with ``np.asarray`` (``jax.tree.map`` for a params pytree;
+:func:`cluster_windows` and :func:`chain_to_numpy` for a cluster), and
+these functions turn numpy into this package's equivalents.
 Nothing here imports the JAX package.
 """
 from __future__ import annotations
@@ -15,10 +16,12 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.chain import Block, Chain, ChainCluster, ChainCommit
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.serve.registry import EnsembleSnapshot
-from repro_torch.serve.shard import GossipConfig, ShardCluster
+from repro_torch.serve.shard import GossipConfig, GossipStats, ShardCluster
+from repro_torch.sim.behavior import BlockchainLedger
 
 F32 = torch.float32
 
@@ -141,6 +144,147 @@ def shard_cluster_from_numpy(hosts: Mapping[str, Sequence[Mapping]],
             registry.ingest(snap)
     if rng_state is not None:
         cluster._rng.setstate(rng_state)
+    return cluster
+
+
+def _commit_to_numpy(c) -> Dict:
+    return dict(tenant=c.tenant, cid=int(c.cid), seq=int(c.seq),
+                rounds=[int(r) for r in c.rounds],
+                alphas=[float(a) for a in c.alphas],
+                stump_rows=(None if c.stump_rows is None
+                            else np.asarray(c.stump_rows, np.float32)),
+                learners=[{k: np.asarray(v) for k, v in p.items()}
+                          for p in c.learners],
+                weak_name=c.weak_name, train_progress=int(c.train_progress),
+                submitted_at=float(c.submitted_at),
+                fingerprint=c.fingerprint)
+
+
+def _node_to_numpy(reg) -> Dict:
+    return dict(next_height=int(reg._next_height),
+                submitted=dict(reg._submitted))
+
+
+def chain_to_numpy(cluster) -> Dict:
+    """A chain cluster's whole state as numpy and plain Python, as
+    :func:`chain_from_numpy` takes it: the blocks with their commits and
+    hashes, the pending queue in its heap order, the chain's and the
+    ledger's RNG states and counters, the ledger's reserved slots and
+    cursors, the committee's participants in join order, each host's
+    liveness and fold height, the committer's, the gossip stats and RNG,
+    and the clock epoch.  ``cluster`` is a chain cluster of this package
+    or of the JAX package; observability contexts are not carried."""
+    ch, led = cluster.chain, cluster.chain.ledger
+    return dict(
+        blocks=[dict(height=b.height, prev_hash=b.prev_hash,
+                     mined_at=float(b.mined_at), miner=b.miner, hash=b.hash,
+                     commits=[_commit_to_numpy(c) for c in b.commits])
+                for b in ch.blocks],
+        pending=[(float(due), int(seq), _commit_to_numpy(c))
+                 for due, seq, c in ch._pending],
+        seq=ch._seq, finalized=ch._finalized, reorgs=ch.reorgs,
+        participants=ch.participants(), confirmations=ch.confirmations,
+        reorg_prob=ch.reorg_prob, committee_size=ch.committee_size,
+        epoch_blocks=ch.epoch_blocks, rng_state=ch._rng.get_state(),
+        cursor_id=getattr(ch, "_cursor_id", None),
+        ledger=dict(rng_state=led.rng.get_state(),
+                    block_interval_s=led.block_interval_s, gap=led.gap,
+                    prune_every=led.prune_every, slots=list(led._slots),
+                    cursors=list(led._cursors), untracked=led._untracked,
+                    since_prune=led._since_prune,
+                    pruned_slots=led.pruned_slots),
+        hosts={hid: dict(up=h.up, **_node_to_numpy(h.registry))
+               for hid, h in cluster.hosts.items()},
+        committer=_node_to_numpy(cluster._committer),
+        stats=dict(vars(cluster.stats)), gossip_rng=cluster._rng.getstate(),
+        clock_epoch=cluster._clock_epoch)
+
+
+def _commit_from_numpy(c: Mapping) -> ChainCommit:
+    rows = c["stump_rows"]
+    commit = ChainCommit(
+        tenant=c["tenant"], cid=int(c["cid"]), seq=int(c["seq"]),
+        rounds=tuple(int(r) for r in c["rounds"]),
+        alphas=tuple(float(a) for a in c["alphas"]),
+        stump_rows=(None if rows is None else
+                    tuple(map(tuple, np.asarray(rows, np.float32)))),
+        learners=tuple(params_from_numpy(c["learners"])),
+        weak_name=c["weak_name"], train_progress=int(c["train_progress"]),
+        submitted_at=float(c["submitted_at"]))
+    want = c.get("fingerprint")
+    if want is not None and commit.fingerprint != want:
+        raise ValueError(f"commit seq {commit.seq}: fingerprint "
+                         f"{commit.fingerprint} != {want}")
+    return commit
+
+
+def _fold_to(reg, blocks: Sequence[Block], node: Mapping) -> None:
+    """Fold ``blocks[1:next_height]`` into a fresh chain registry: its view
+    is a pure function of the confirmed prefix it has folded."""
+    for b in blocks[1:int(node["next_height"])]:
+        reg._fold_block(b)
+    reg._next_height = int(node["next_height"])
+    reg._submitted = dict(node["submitted"])
+
+
+def chain_from_numpy(state: Mapping, cfg: Optional[GossipConfig] = None
+                     ) -> ChainCluster:
+    """A :class:`~repro_torch.chain.ChainCluster` holding another chain
+    cluster's state (:func:`chain_to_numpy`), so that both go on from the
+    same chain: the same block hashes, confirmation draws, reorgs and
+    committee.  Every commit's fingerprint and every block's hash is
+    computed afresh and must equal the one recorded, else this raises.
+    Each node's view is rebuilt by folding the confirmed blocks below its
+    fold height, then rebased to the clock epoch when one was set."""
+    led = state["ledger"]
+    ledger = BlockchainLedger(np.random.RandomState(),
+                              block_interval_s=led["block_interval_s"],
+                              prune_every=led["prune_every"])
+    ledger.rng.set_state(led["rng_state"])
+    ledger.gap = float(led["gap"])
+    ledger._slots = [float(t) for t in led["slots"]]
+    ledger._cursors = [float(t) for t in led["cursors"]]
+    ledger._untracked = bool(led["untracked"])
+    ledger._since_prune = int(led["since_prune"])
+    ledger.pruned_slots = int(led["pruned_slots"])
+    chain = Chain(ledger, confirmations=state["confirmations"],
+                  reorg_prob=state["reorg_prob"],
+                  committee_size=state["committee_size"],
+                  epoch_blocks=state["epoch_blocks"])
+    chain._rng.set_state(state["rng_state"])
+    chain.blocks = []
+    for b in state["blocks"]:
+        block = Block(int(b["height"]), b["prev_hash"], float(b["mined_at"]),
+                      tuple(_commit_from_numpy(c) for c in b["commits"]),
+                      miner=b["miner"])
+        if block.hash != b["hash"]:
+            raise ValueError(f"block {block.height}: hash {block.hash} != "
+                             f"{b['hash']}")
+        chain.blocks.append(block)
+    chain._pending = [(float(due), int(seq), _commit_from_numpy(c))
+                      for due, seq, c in state["pending"]]
+    chain._seq = int(state["seq"])
+    chain._finalized = bool(state["finalized"])
+    chain.reorgs = int(state["reorgs"])
+    if state["cursor_id"] is not None:
+        chain._cursor_id = int(state["cursor_id"])
+
+    cluster = ChainCluster(cfg=cfg, host_ids=list(state["hosts"]),
+                           chain=chain)
+    # the hosts joined while the cluster was built: restore the recorded
+    # committee (killed hosts left it) in its join order
+    chain._participants = dict.fromkeys(state["participants"])
+    for hid, node in state["hosts"].items():
+        _fold_to(cluster.hosts[hid].registry, chain.blocks, node)
+        cluster.hosts[hid].up = bool(node["up"])
+    _fold_to(cluster._committer, chain.blocks, state["committer"])
+    cluster.stats = GossipStats(**state["stats"])
+    cluster._rng.setstate(state["gossip_rng"])
+    if state["clock_epoch"] is not None:
+        cluster._clock_epoch = float(state["clock_epoch"])
+        for h in cluster.hosts.values():
+            h.registry.rebase_clock(cluster._clock_epoch)
+        cluster._committer.rebase_clock(cluster._clock_epoch)
     return cluster
 
 

@@ -13,9 +13,12 @@ serving fleet on the card.
 
 ``--list`` prints the registry (domains, variants, traces, bands); a run
 prints the train metrics against the paper band and the serving-replay
-report, and exits nonzero when the run falls out of the band.  Serving the
-chain scenario (``blockchain_flchain``) raises: ``chain/*`` is not ported,
-so it needs ``--no-serve``.
+report, and exits nonzero when the run falls out of the band.  The chain
+scenario serves from a chain of record and kills its committee leader
+mid-replay:
+
+    PYTHONPATH=src python -m repro_torch.launch.run_scenario \\
+        blockchain_flchain --trace block_delay
 """
 from __future__ import annotations
 

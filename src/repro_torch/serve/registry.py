@@ -138,7 +138,8 @@ class EnsembleRegistry:
         ``owners``/``rounds`` are per-learner provenance metadata
         (contributing client id + client-local round).  The central
         registry ignores them — a snapshot here is already the aggregated
-        truth; the chain-of-record registry, not ported yet, commits them."""
+        truth; the chain-of-record registry
+        (:class:`~repro_torch.chain.ChainRegistry`) commits them."""
         learners = list(learners)
         alphas = torch.tensor([float(a) for a in alphas], dtype=F32)
         if len(learners) != alphas.shape[0]:

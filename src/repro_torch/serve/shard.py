@@ -113,7 +113,8 @@ class ShardCluster:
     def _make_registry(self, host_id: str) -> EnsembleRegistry:
         """Registry factory for one host replica — the hook subclasses
         override to back hosts with a different store (the chain-of-record
-        registry, not ported yet, swaps in here)."""
+        registry of :class:`~repro_torch.chain.ChainCluster` swaps in
+        here)."""
         return EnsembleRegistry(history=self.cfg.history)
 
     # ------------------------------------------------------------ topology

@@ -17,8 +17,11 @@ voting on the same device, under the eq.-(1)
 :class:`~repro_torch.serve.autoscale.FleetAutoscaler`.  One
 :class:`ScenarioReport` per (scenario, trace, seed) carries both halves.
 
-The chain-of-record mode (``chain=True``, ``blockchain_flchain``) needs
-``chain/*``, which is not ported: serving such a scenario raises.
+A chain-of-record scenario (``chain=True``, ``blockchain_flchain``)
+publishes into a :class:`~repro_torch.chain.ChainCluster` instead: the
+enhanced run's deltas commit to the shared chain, every host folds the
+confirmed blocks, and the replay kills the committee leader halfway
+through.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.chain import ChainCluster
 from repro_torch.core import FederatedBoostEngine
 from repro_torch.core.async_engine import RunMetrics
 from repro_torch.core.metrics import (
@@ -38,10 +42,6 @@ from repro_torch.serve import (AutoscaleConfig, BatchConfig, FleetAutoscaler,
                                ShardedEnsembleServer)
 from repro_torch.serve.engine import Response
 from repro_torch.sim.scenarios import Scenario, get_scenario
-
-UNPORTED_CHAIN = ("the chain-of-record serve replay needs chain/*, which is "
-                  "not ported yet; run with serve=False (--no-serve) to "
-                  "train and band-check only")
 
 # serve-replay fleet defaults: small fleet, autoscalable, analytic service
 # model (the JAX package's c0 + c1*n regime)
@@ -196,7 +196,13 @@ def _replay(sc: Scenario, server: ShardedEnsembleServer,
     ``autoscale``) with an SLO ledger attached; returns the replay summary
     and every response in the order the fleet answered.  Asserts the
     fleet's zero-loss invariant (every accepted request answered exactly
-    once across membership churn)."""
+    once across membership churn).
+
+    Over a chain cluster under the autoscaler, the committee leader is
+    killed just before the middle arrival: an abrupt death, not a drain.
+    The autoscaler sheds the dead replica (accepted requests reroute), a
+    replacement warms from chain history alone, and the zero-loss
+    assertion must still hold."""
     # SLO ledger over the replay: measurement only (the autoscaler keeps
     # its queue/p99 signal), so scenario bands are unchanged
     monitor = SLOMonitor([SLObjective(tenant=sc.name,
@@ -207,8 +213,19 @@ def _replay(sc: Scenario, server: ShardedEnsembleServer,
     scaler = (FleetAutoscaler(server,
                               _autoscale_config(len(server.cluster.hosts)))
               if autoscale else None)
+    cluster = server.cluster
+    kill_at = (len(arrivals) // 2
+               if isinstance(cluster, ChainCluster) and scaler is not None
+               else None)
+    killed = None
     accepted, responses = 0, []
-    for t, x in arrivals:
+    for i, (t, x) in enumerate(arrivals):
+        if i == kill_at:
+            up = cluster.host_ids()
+            if len(up) > 1:
+                leader = cluster.leader()
+                killed = leader if leader in up else up[0]
+                cluster.kill(killed)
         ok, out = server.submit(sc.name, x, t)
         accepted += ok
         responses.extend(out)
@@ -240,7 +257,7 @@ def _replay(sc: Scenario, server: ShardedEnsembleServer,
         "scale_outs": scaler.stats.scale_outs if scaler else 0,
         "scale_ins": scaler.stats.scale_ins if scaler else 0,
         "rerouted": scaler.stats.rerouted if scaler else 0,
-        "killed_host": None,             # chain mode only (not ported)
+        "killed_host": killed,
         "slo": {
             "good": slo_rep.get("good", 0),
             "bad": slo_rep.get("bad", 0),
@@ -258,8 +275,6 @@ def replay_serve(sc: Scenario, cluster: ShardCluster, data: Dict,
     """Replay the scenario's request trace (:func:`_serve_arrivals`) into
     a serving fleet over ``cluster`` that votes on ``device``, under the
     analytic service model; returns the replay summary."""
-    if sc.chain:
-        raise NotImplementedError(f"scenario {sc.name!r}: {UNPORTED_CHAIN}")
     sp = obs.span("scenario.serve_replay", sim_t=0.0, scenario=sc.name,
                   trace=trace, seed=seed)
     cluster.run_until_quiescent()
@@ -284,16 +299,21 @@ def run_scenario(name_or_scenario, trace: str = "legacy", seed: int = 0,
     ``trace``, check the paper band, then (optionally) replay the
     publish/request trace into an autoscaled serving fleet.  Scenarios
     with ``serve_replay=False`` (the fleet-scale smokes) always skip the
-    serve phase; serving a chain scenario raises
-    :class:`NotImplementedError` (``chain/*`` is not ported)."""
+    serve phase.  A chain scenario's fleet is a
+    :class:`~repro_torch.chain.ChainCluster` (no central registry)."""
     sc = (name_or_scenario if isinstance(name_or_scenario, Scenario)
           else get_scenario(name_or_scenario))
     serve = serve and sc.serve_replay
-    if serve and sc.chain:
-        raise NotImplementedError(f"scenario {sc.name!r}: {UNPORTED_CHAIN}")
     with obs.span("scenario.run", scenario=sc.name, trace=trace, seed=seed):
-        cluster = (ShardCluster(hosts, GossipConfig(seed=seed)) if serve
-                   else None)
+        if not serve:
+            cluster = None
+        elif sc.chain:
+            # decentralized chain-of-record mode: publishes commit to the
+            # shared chain; hosts (and any replacement the autoscaler
+            # warms later) fold confirmed blocks
+            cluster = ChainCluster(hosts, GossipConfig(seed=seed))
+        else:
+            cluster = ShardCluster(hosts, GossipConfig(seed=seed))
         data, runs = train_pair(sc, trace, seed=seed, n_rounds=n_rounds,
                                 cluster=cluster, publish_every=publish_every,
                                 engine=engine, device=device)

@@ -101,8 +101,7 @@ class Scenario:
     # (catch_up_cap, compensation, scheduler, ...)
     config_overrides: Mapping = field(default_factory=dict)
     # decentralized chain-of-record mode: the serving fleet is backed by a
-    # chain of record instead of a sharded registry (the chain and the
-    # serve replay are not ported: the harness refuses to serve it)
+    # chain of record instead of a sharded registry
     chain: bool = False
 
     def make_data(self, seed: int = 0) -> Dict:
@@ -474,9 +473,7 @@ register(replace(
 
 # decentralized chain-of-record variant: same environment and paper band
 # as the blockchain domain, with serving backed by a hash-linked chain of
-# client commits instead of a central registry.  Registered for parity
-# with the JAX package; its serve replay needs the chain, which is not
-# ported, so the harness trains it only with serve=False.
+# client commits instead of a central registry.
 _blockchain = get_scenario("blockchain")
 register(replace(
     _blockchain, name="blockchain_flchain", variant_of="blockchain",

@@ -10,7 +10,8 @@ the shipped ``mobile_diurnal`` recording — one reference handset observed
 over a 24 s simulated day, sampled from the analytic
 :class:`~repro_torch.sim.behavior.DiurnalBehavior` model at a fixed seed so the
 artifact is reproducible bit for bit.  The recordings are the repository's
-data files, shared with the JAX package; this module only reads them.
+data files, shared with the JAX package; ``write_trace`` records a new one
+(under ``REPRO_TRACES_DIR`` when that is set).
 """
 from __future__ import annotations
 
@@ -84,3 +85,12 @@ def derive_diurnal_trace(period_s: float = 24.0, n_segments: int = 48,
         "loop_s": float(period_s),
         "segments": segments,
     }
+
+
+def write_trace(name: str, trace: Dict) -> Path:
+    """Write ``trace`` as the recording ``name`` (the JSON that
+    :func:`load_trace` reads back); returns its path."""
+    p = trace_path(name)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text(json.dumps(trace, indent=1) + "\n")
+    return p

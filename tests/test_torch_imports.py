@@ -35,7 +35,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.models.transformer",
             "repro_torch.configs.registry", "repro_torch.serve.shard",
             "repro_torch.serve.autoscale", "repro_torch.obs.slo",
-            "repro_torch.obs.audit"} <= set(mods)
+            "repro_torch.obs.audit", "repro_torch.chain",
+            "repro_torch.chain.core", "repro_torch.chain.registry",
+            "repro_torch.chain.cluster", "repro_torch.launch.obs_report",
+            "repro_torch.core.controllers"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -179,20 +179,20 @@ def test_result_row_equal_reference():
 
 
 def test_run_scenario_trains_and_refuses_the_unported_replay():
-    """Every scenario that replays serving now serves, but the chain
-    scenario, whose replay needs the unported ``chain/*``: it still
-    raises, and trains with ``serve=False``."""
-    with pytest.raises(NotImplementedError, match="chain"):
-        tharness.run_scenario("blockchain_flchain", n_rounds=2,
-                              device="cpu")
+    """Every scenario that replays serving serves, the chain scenario
+    too: its replay kills the committee leader halfway and reports the
+    host; with ``serve=False`` it trains only."""
+    chain = tharness.run_scenario("blockchain_flchain", n_rounds=2,
+                                  serve_duration_s=0.5, device="cpu")
+    assert chain.serve["killed_host"] in ("host-0", "host-1")
+    assert chain.serve["completed"] > 0 and chain.serve["rejected"] == 0
     chain = tharness.run_scenario("blockchain_flchain", n_rounds=2,
                                   serve=False, device="cpu")
     assert chain.serve is None and chain.enhanced.learners_merged > 0
-    served = [n for n, sc in tscen.SCENARIOS.items()
-              if sc.serve_replay and not sc.chain]
-    assert "blockchain_flchain" not in served and "iot" in served
+    served = [n for n, sc in tscen.SCENARIOS.items() if sc.serve_replay]
+    assert "blockchain_flchain" in served and "iot" in served
     assert served == [n for n, sc in jscen.SCENARIOS.items()
-                      if sc.serve_replay and not sc.chain]
+                      if sc.serve_replay]
     rep = tharness.run_scenario("healthcare", trace="maintenance",
                                 n_rounds=3, serve_duration_s=0.5,
                                 device="cpu")
@@ -215,8 +215,13 @@ def test_run_scenario_cli(capsys):
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
     assert "mobile_100k" in out and "blockchain_flchain" in out
-    with pytest.raises(NotImplementedError, match="chain"):
-        cli.main(["blockchain_flchain", "--rounds", "2", "--device", "cpu"])
+    rc = cli.main(["blockchain_flchain", "--trace", "block_delay",
+                   "--rounds", "2", "--serve-duration", "0.5", "--device",
+                   "cpu"])
+    assert rc in (0, 1)
+    out = capsys.readouterr().out
+    assert "scenario blockchain_flchain · trace block_delay" in out
+    assert "serve:" in out and "(1 out / 1 in" in out
     rc = cli.main(["iot", "--trace", "gilbert", "--rounds", "3", "--hosts",
                    "3", "--serve-duration", "0.5", "--device", "cpu"])
     assert rc in (0, 1)
