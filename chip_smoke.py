@@ -105,7 +105,28 @@ nonzero (there is no CPU fall-back):
    ``obs_report.check_trace``, its commits stitched to ``chain.aggregate``
    on two nodes or more and its hashes the untraced run's; and
    edge_vision enhanced with eq. 1 and the two beyond-paper interval
-   controllers, every interval within [i_min, i_max].
+   controllers, every interval within [i_min, i_max];
+13. the policy-driven serving launcher: ``KernelPolicy.calibrate_call``
+   on the card (both backends) at each tenant's first fit (edge_vision,
+   iot) and at phase 5's commonest stump vote shapes, each call held cuda
+   against torch (the scan bit-equal, the votes within rtol/atol 1e-5,
+   the lanes bit-equal), saved and loaded back; then
+   ``repro_torch.launch.serve_ensemble.main`` at its own defaults
+   (edge_vision and iot, 12 rounds, 400 rps for 3 s, 3 hosts, the first
+   tenant's owner killed mid-serve, autoscaled up to 5 hosts) with a
+   policy table (a batch cap, a host override, iot on the fused
+   fingerprint path with its own budget and cap, a pair cap), traced: the
+   report equal to the JAX package's recorded run but for the snapshot
+   versions (held to the card's own publishes) and staleness, every
+   dispatched choice ``cuda``, the three stump kernels launched, every
+   ``stump_scan`` of the run bit-equal to its plain version on its own
+   inputs, the port's kernel profile and trace check over its metrics and
+   trace; the
+   same arrivals over copies of the trained cluster, on the CPU's plain
+   path (report equal, margins within rtol/atol 1e-5) and on the card
+   with iot pinned to ``torch`` (the launches split by policy); and the
+   host time the dispatcher adds to a ``stump_vote_batched`` call at
+   (1, 477, 1), timed in turns against the cuda backend's launch code.
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
 path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
@@ -114,14 +135,17 @@ bf16 at the path's shape, a large one and d 128, and the path's own
 ``scaled_dot_product_attention`` timed beside it; it counts the tensor-core
 instructions (HGMMA, HMMA) of each flash kernel in the built library's SASS.
 Launch counts are zeroed just before phase 4 and read just after phase 5,
-and zeroed again just before each later path (7.2, 8, 9, 10, 11, 12) and
-read just after it (the main path of phases 11 and 12 is their step 1).
+and zeroed again just before each later path (7.2, 8, 9, 10, 11, 12, 13)
+and read just after it (the main path of phases 11 and 12 is their step
+1, of phase 13 its step 2, the run of ``serve_ensemble``).
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import math
 import statistics
@@ -1594,9 +1618,9 @@ def recording_stump_shapes():
     saved = {name: getattr(ops, name) for name in STUMP_KERNELS}
 
     def wrap(name, fn):
-        def call(xsel, *rest):
+        def call(xsel, *rest, **kw):
             shapes[name][tuple(xsel.shape)] += 1
-            return fn(xsel, *rest)
+            return fn(xsel, *rest, **kw)
         return call
     for name, fn in saved.items():
         setattr(ops, name, wrap(name, fn))
@@ -2500,15 +2524,15 @@ def serve_generic(registry, datas):
         batches.append((list(batch), out))
         return out
 
-    def timed_generic(group, margins):
+    def timed_generic(group, margins, policy):
         t0 = time.perf_counter()
-        eval_generic(group, margins)
+        eval_generic(group, margins, policy)
         timed["eval"] += time.perf_counter() - t0
 
-    def timed_vote(m, a):
+    def timed_vote(m, a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = vote(m, a)
+        out = vote(m, a, **kw)
         torch.cuda.synchronize()
         timed["vote"] += time.perf_counter() - t0
         return out
@@ -3405,6 +3429,454 @@ def chain_path() -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 13
+POLICY_DIR = ROOT / "build" / "policy"
+# serve_ensemble's own defaults, the first tenant's owner killed mid-serve
+# and the autoscaler on (up to 5 hosts)
+POLICY_ARGV = ("--domains", "edge_vision", "iot", "--rounds", "12",
+               "--rate", "400", "--duration", "3", "--hosts", "3",
+               "--seed", "0", "--kill-owner", "--autoscale", "5")
+# a fleet default batch cap, a host override, iot on the fused fingerprint
+# path with its own budget and cap, and an edge_vision@host-0 pair cap
+POLICY_TABLE = {
+    "default": {"max_batch": 32},
+    "hosts": {"host-1": {"batch": {"queue_budget": 512}}},
+    "tenants": {"iot": {"batch": {"queue_budget": 64, "max_batch": 8},
+                        "kernel": {"fused_fingerprint": True}}},
+    "pairs": {"edge_vision@host-0": {"batch": {"max_batch": 16}}}}
+# report fields that follow the trained snapshots, not the arrivals: an
+# enhanced run may split from the JAX package's at an exact stump tie (C4)
+POLICY_TRAINED = ("snapshot_version", "mean_staleness_s")
+# The JAX package's run of the same command and table on a CPU, its report
+# without POLICY_TRAINED (its XLA backend: the report does not depend on
+# the backend, the service time being serve_ensemble's analytic model):
+#   REPRO_KERNEL_BACKEND=xla PYTHONPATH=src python -c "import json,
+#   chip_smoke as cs; from repro.launch import serve_ensemble as se;
+#   print(json.dumps(cs.untrained(cs.run_serve_ensemble(se, cs.policy_argv(
+#   'build/policy'))['report'])))"
+POLICY_REFERENCE = json.loads("""
+{"completed": 1765, "rejected": 0, "throughput_rps": 594.567379412382,
+"p50_ms": 2.3999999999999577, "p99_ms": 4.46937436090078, "mean_batch":
+1.7286973555337903, "n_batches": 1021, "queue_depth_peak": 7, "tenants":
+{"edge_vision": {"completed": 853, "rejected": 0, "p50_ms":
+2.392664768925634, "p99_ms": 4.199999999999999}, "iot": {"completed": 912,
+"rejected": 0, "p50_ms": 2.560169122523215, "p99_ms": 4.618504786447087}},
+"per_host": {"host-2": {"completed": 523, "rejected": 0, "throughput_rps":
+334.53266502963794, "p50_ms": 2.5745189239847477, "p99_ms":
+4.7999999999999154, "mean_batch": 1.7789115646258504, "n_batches": 294,
+"queue_depth_peak": 7, "tenants": {"edge_vision": {"completed": 24,
+"rejected": 0, "p50_ms": 3.2988798298179134, "p99_ms": 146.4193608601525},
+"iot": {"completed": 499, "rejected": 0, "p50_ms": 2.5387744772129572,
+"p99_ms": 4.7999999999999154}}, "status": "up"}, "scale-0": {"completed":
+415, "rejected": 0, "throughput_rps": 294.66327365587864, "p50_ms":
+2.3999999999997357, "p99_ms": 4.1999999999999815, "mean_batch":
+1.7148760330578512, "n_batches": 242, "queue_depth_peak": 7, "tenants":
+{"edge_vision": {"completed": 388, "rejected": 0, "p50_ms":
+2.3924145674856234, "p99_ms": 4.1999999999999815}, "iot": {"completed": 27,
+"rejected": 0, "p50_ms": 3.425666652120407, "p99_ms": 4.3999999999999595}},
+"status": "up"}, "scale-1": {"completed": 386, "rejected": 0,
+"throughput_rps": 301.59620024466295, "p50_ms": 2.5349961885892114,
+"p99_ms": 4.0000000000000036, "mean_batch": 1.7079646017699115, "n_batches":
+226, "queue_depth_peak": 6, "tenants": {"iot": {"completed": 386,
+"rejected": 0, "p50_ms": 2.5349961885892114, "p99_ms": 4.0000000000000036}},
+"status": "up"}, "host-1": {"completed": 441, "rejected": 0,
+"throughput_rps": 330.1465804356089, "p50_ms": 2.3465460073186506, "p99_ms":
+3.800000000000001, "mean_batch": 1.7027027027027026, "n_batches": 259,
+"queue_depth_peak": 6, "tenants": {"edge_vision": {"completed": 441,
+"rejected": 0, "p50_ms": 2.3465460073186506, "p99_ms": 3.800000000000001}},
+"status": "retired"}, "host-0": {"completed": 0, "rejected": 0,
+"throughput_rps": 0.0, "p50_ms": 0.0, "p99_ms": 0.0, "mean_batch": 0.0,
+"n_batches": 0, "queue_depth_peak": 0, "tenants": {}, "status": "retired"}},
+"cache": {"hits": 807, "misses": 958, "fills": 958, "invalidated": 0,
+"evicted": 0, "hit_rate": 0.4572237960339943}}""")
+POLICY_REL = 1e-9
+
+
+def policy_argv(out_dir, table=POLICY_TABLE, name="policy_table.json"):
+    """``POLICY_ARGV`` with ``table`` written into ``out_dir`` as its
+    ``--policy-table``."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / name).write_text(json.dumps(table))
+    return [*POLICY_ARGV, "--policy-table", str(out / name)]
+
+
+def untrained(rep):
+    """``rep`` without the ``POLICY_TRAINED`` fields, at every depth."""
+    if isinstance(rep, dict):
+        return {k: untrained(v) for k, v in rep.items()
+                if k not in POLICY_TRAINED}
+    return rep
+
+
+def run_serve_ensemble(se, argv) -> dict:
+    """Run a ``serve_ensemble`` module's ``main`` with ``argv`` as
+    ``sys.argv`` (the JAX package's main reads it; so does the port's when
+    it is given none).  ``se`` is ``repro_torch.launch.serve_ensemble``,
+    or the JAX package's to record the reference.  Returns the fleet's
+    ``report``, the ``server``, the tenants' request ``pools``, each
+    tenant's published ``versions`` and a ``copy`` of the trained cluster
+    taken before serving (``convert.cluster_windows``, the gossip RNG
+    state, the gossip config)."""
+    from repro_torch.convert import cluster_windows
+    seen = {}
+    train, serve_ = se.train_tenants, se.serve
+
+    def training(cluster, domains, *a, **kw):
+        pools = train(cluster, domains, *a, **kw)
+        seen.update(pools=pools, versions={t: cluster.version_count(t)
+                                           for t in domains},
+                    copy=(cluster_windows(cluster), cluster._rng.getstate(),
+                          cluster.cfg))
+        return pools
+
+    def serving(*a, **kw):
+        seen["server"] = serve_(*a, **kw)
+        return seen["server"]
+    se.train_tenants, se.serve = training, serving
+    saved, sys.argv = sys.argv, ["serve_ensemble", *argv]
+    try:
+        se.main()
+    finally:
+        se.train_tenants, se.serve = train, serve_
+        sys.argv = saved
+    seen["report"] = seen["server"].report()
+    return seen
+
+
+def recording_answers():
+    """Wrap ``BatchEvaluator.evaluate`` so that every response of every
+    host records (rid, tenant, version, margin) in answer order; returns
+    the list and a function that restores the method."""
+    from repro_torch.serve.engine import BatchEvaluator
+    answers = []
+    evaluate = BatchEvaluator.evaluate
+
+    def call(self, batch):
+        out = evaluate(self, batch)
+        answers.extend((r.rid, r.tenant, r.snapshot_version, r.margin)
+                       for r in out)
+        return out
+    BatchEvaluator.evaluate = call
+
+    def restore():
+        BatchEvaluator.evaluate = evaluate
+    return answers, restore
+
+
+def policy_equal(got, want, label: str) -> None:
+    """Two reports hold the same fields at every depth: integers and
+    strings exactly, floats to ``POLICY_REL`` relative."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{label}: fields {sorted(got)} != "
+                                 f"{sorted(want)}")
+        for k in want:
+            policy_equal(got[k], want[k], f"{label}.{k}")
+    elif isinstance(want, float):
+        if not math.isclose(got, want, rel_tol=POLICY_REL, abs_tol=0.0):
+            raise AssertionError(f"{label}: {got!r} != {want!r}")
+    elif got != want:
+        raise AssertionError(f"{label}: {got!r} != {want!r}")
+
+
+def answers_close(got, want, label: str) -> float:
+    """Same (rid, tenant, version) in the same order, margins within
+    rtol/atol ``TOL``; returns the largest margin difference."""
+    if [a[:3] for a in got] != [a[:3] for a in want]:
+        raise AssertionError(f"{label}: rid/tenant/version differ")
+    worst = max(abs(g[3] - w[3]) for g, w in zip(got, want))
+    far = sum(abs(g[3] - w[3]) > TOL + TOL * abs(w[3])
+              for g, w in zip(got, want))
+    if far:
+        raise AssertionError(f"{label}: {far} margins differ beyond "
+                             f"rtol/atol {TOL} (max {worst})")
+    return worst
+
+
+def recording_scans():
+    """Wrap ``ops.stump_scan`` so that every call keeps a copy of its
+    inputs and of the error grid it returned; returns the list and a
+    function that restores the wrapper."""
+    from repro_torch.kernels import ops
+    calls = []
+    scan = ops.stump_scan
+
+    def call(*args, **kw):
+        out = scan(*args, **kw)
+        calls.append(([a.clone() for a in args], out.clone()))
+        return out
+    ops.stump_scan = call
+
+    def restore():
+        ops.stump_scan = scan
+    return calls, restore
+
+
+def hold_backends(name, args, got=None) -> float:
+    """``ops.<name>`` on the card's kernel against its plain version on
+    the same inputs, both through the dispatcher with a backend pinned on
+    a policy of their own: the scan bit-equal (its contract), the stump
+    votes within rtol/atol ``TOL`` and the fingerprint lanes bit-equal.
+    ``got`` is an output the path already took from the kernel (else it is
+    launched here).  Returns the largest difference."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    fn = getattr(ops, name)
+    if got is None:
+        got = fn(*args, backend="cuda", policy=KernelPolicy(env_var=None))
+    want = fn(*args, backend="torch", policy=KernelPolicy(env_var=None))
+    torch.cuda.synchronize()
+    if name == "stump_scan":
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} at {tuple(args[0].shape)}: not "
+                                 f"bit-equal to the plain version (max "
+                                 f"{float((got - want).abs().max())})")
+        return 0.0
+    m, wm = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+    if isinstance(got, tuple) and not all(
+            torch.equal(g, w) for g, w in zip(got[1:], want[1:])):
+        raise AssertionError(f"{name} at {tuple(args[0].shape)}: "
+                             f"fingerprint lanes not bit-equal")
+    err = float((m - wm).abs().max())
+    if not close(m, wm):
+        raise AssertionError(f"{name} at {tuple(args[0].shape)}: max err "
+                             f"{err}")
+    return err
+
+
+def table_policies(table) -> list:
+    """Every kernel policy a :class:`PolicyTable` holds."""
+    layers = [*table._hosts.values(), *table._tenants.values(),
+              *table._pairs.values()]
+    return [k for k in [table.default_kernel, *(k for _, k in layers)]
+            if k is not None]
+
+
+def policy_path(serve_shapes, fleet_launches) -> dict:
+    """Phase 13: the policy-driven serving launcher on the card.  (1)
+    ``KernelPolicy.calibrate_call`` on the card at each tenant's first fit
+    and at phase 5's commonest stump vote shapes, each call held cuda
+    against torch (:func:`hold_backends`), saved and loaded back;
+    (2) ``serve_ensemble.main`` at its own defaults with a policy
+    table, traced: the report held to the JAX package's, every dispatched
+    choice ``cuda``, the three stump kernels launched, every scan of the
+    run bit-equal to the plain version on its own inputs, the kernel
+    profile and the trace checked; (3) the same arrivals over copies of the
+    trained cluster, on the CPU's plain path and on the card with iot
+    pinned to ``torch``; (4) the dispatcher's host cost a call.  Returns
+    step 2's launch counts."""
+    import dataclasses
+    import os
+    from collections import Counter
+    from repro_torch import obs
+    from repro_torch.convert import shard_cluster_from_numpy
+    from repro_torch.data import make_domain_data
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.launch import obs_report
+    from repro_torch.launch import serve_ensemble as se
+    from repro_torch.models.weak import stump_thresholds
+    from repro_torch.serve import PolicyTable
+    from repro_torch.sim.scenarios import DOMAINS
+
+    # (1) calibrate on the card, at the first fit of each tenant (a
+    # client of the domain cut as train_tenants cuts it) and at phase 5's
+    # commonest stump vote shapes, each call held cuda against torch
+    t0 = time.perf_counter()
+    calls = []
+    for tenant in ("edge_vision", "iot"):
+        full = DOMAINS[tenant]
+        dom = dataclasses.replace(full, n_samples=min(full.n_samples, 2000),
+                                  n_clients=min(full.n_clients, 8))
+        x, y = make_domain_data(dom, seed=0)["clients"][0]
+        x, y = torch.from_numpy(x).to(CARD), torch.from_numpy(y).to(CARD)
+        w = torch.full((x.shape[0],), 1.0 / x.shape[0], device=CARD)
+        calls.append(("stump_scan", (x, y, w, stump_thresholds(x))))
+    gen = torch.Generator(device=CARD).manual_seed(13)
+    for name in STUMP_KERNELS:
+        (B, T, N), _ = serve_shapes[name].most_common(1)[0]
+        calls.append((name, vote_inputs(gen, B, T, N, 0)))
+    cal = KernelPolicy()
+    for name, args in calls:
+        bucket, samples = cal.calibrate_call(name, *args, reps=20)
+        med = {b: statistics.median(ts) * 1e3 for (b, _), ts in
+               samples.items()}
+        win = cal.table[(name, bucket)].backend
+        err = hold_backends(name, args)
+        log(f"policy 13.1: calibrate {name} at {tuple(args[0].shape)} "
+            f"(bucket {dispatch.bucket_label(bucket)}): median ms "
+            + " ".join(f"{b}={ms:.4f}" for b, ms in sorted(med.items()))
+            + f" -> {win}" + ("" if win == "cuda" else
+                              " (finding: the plain version won)")
+            + ("; cuda bit-equal to torch" if name == "stump_scan" else
+               f"; cuda within {TOL} of torch, max err {err:.3g}")
+            + f" | {nvidia_smi()}")
+        if sorted(med) != dispatch.available_backends(CARD):
+            raise AssertionError(f"calibrate {name}: measured {sorted(med)}")
+    path = cal.save(str(POLICY_DIR / "calibration.json"))
+    back = KernelPolicy.load(path)
+    if back.table != cal.table or back.measured_on != CARD:
+        raise AssertionError(f"calibration table round trip: {back.table} "
+                             f"measured on {back.measured_on}")
+    log(f"policy 13.1: {len(back.table)} entries saved to "
+        f"{Path(path).relative_to(ROOT)} and loaded back equal, measured "
+        f"on {back.measured_on} ({time.perf_counter() - t0:.2f} s)")
+
+    # (2) serve_ensemble on the card
+    env = os.environ.get(dispatch.ENV_VAR)
+    log(f"policy 13.2: {dispatch.ENV_VAR}={env!r}")
+    if env is not None:
+        raise AssertionError(f"{dispatch.ENV_VAR} is set: {env!r}")
+    trace, metrics = POLICY_DIR / "trace.jsonl", POLICY_DIR / "metrics.json"
+    argv = [*policy_argv(POLICY_DIR), "--trace", str(trace), "--metrics",
+            str(metrics), "--device", CARD]
+    old_policy = dispatch.set_default_policy(KernelPolicy())
+    obs.set_registry(obs.MetricsRegistry())
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    shapes, restore_shapes = recording_stump_shapes()
+    answers, restore_answers = recording_answers()
+    scans, restore_scans = recording_scans()
+    try:
+        run = run_serve_ensemble(se, argv)
+        torch.cuda.synchronize()
+    finally:
+        restore_shapes()
+        restore_answers()
+        restore_scans()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    rep = run["report"]
+    log(f"policy 13.2: serve_ensemble {' '.join(argv[:-6])} on {CARD}: "
+        f"{wall:.2f} s with training; launches {launches}; vote calls "
+        + ", ".join(f"{k} {sum(c.values())}" for k, c in shapes.items()))
+    log(f"policy 13.2: report {json.dumps(rep)}")
+    policy_equal(untrained(rep), POLICY_REFERENCE, "policy 13.2")
+    for tenant, v in run["versions"].items():
+        served = [rep["tenants"][tenant]["snapshot_version"]] + [
+            h["tenants"][tenant]["snapshot_version"]
+            for h in rep["per_host"].values() if tenant in h["tenants"]]
+        if served[0] != v or not all(1 <= s <= v for s in served):
+            raise AssertionError(f"{tenant}: served versions {served}, "
+                                 f"{v} published")
+    for name in ("stump_scan", *STUMP_KERNELS):
+        if launches[name] <= 0:
+            raise AssertionError(f"policy 13.2: {name} never launched")
+    for name in STUMP_KERNELS:
+        if sum(shapes[name].values()) != launches[name]:
+            raise AssertionError(f"policy 13.2: {name} called "
+                                 f"{sum(shapes[name].values())} times, "
+                                 f"launched {launches[name]}")
+    if len(scans) != launches["stump_scan"]:
+        raise AssertionError(f"policy 13.2: {len(scans)} scans recorded "
+                             f"for {launches['stump_scan']} launches")
+    for args, got in scans:
+        hold_backends("stump_scan", args, got)
+    scan_shapes = Counter(tuple(a[0].shape) + (a[3].shape[1],)
+                          for a, _ in scans)
+    log(f"policy 13.2: every stump_scan of the run ({len(scans)}, "
+        f"(N, F, T) {dict(scan_shapes)}) bit-equal to the plain version "
+        f"on its own inputs")
+    policies = [dispatch.default_policy(),
+                *table_policies(run["server"].policy_table)]
+    choices = [sorted(set(p.choices.values())) for p in policies]
+    log(f"policy 13.2: choices of the default policy and the table's "
+        f"{len(policies) - 1} kernel polic(ies): {choices}; buckets "
+        f"{sorted(set(k for p in policies for k in p.choices))}")
+    kernel = dispatch.platform_default(CARD)
+    if any(c != [kernel] for c in choices):
+        raise AssertionError(f"policy 13.2: choices {choices}")
+    rows, _ = obs_report.kernel_profile(json.loads(metrics.read_text()))
+    for r in rows:
+        log(f"policy 13.2: kernel profile {r['kernel']} {r['bucket']} "
+            f"{r['backend']}: {r['launches']} launches, p50 "
+            f"{r['p50_s'] * 1e3:.4f} ms, p99 {r['p99_s'] * 1e3:.4f} ms")
+    profiled = {r["kernel"] for r in rows if r["backend"] == kernel}
+    if not {"stump_scan", *STUMP_KERNELS} <= profiled or \
+            {r["backend"] for r in rows} != {kernel}:
+        raise AssertionError(f"policy 13.2: kernel profile rows {rows}")
+    meta, spans = obs.load_trace(str(trace))
+    errors = obs_report.check_trace(spans, meta)
+    log(f"policy 13.2: trace {len(spans)} spans, check_trace "
+        f"{'clean' if not errors else errors[:5]}")
+    if errors:
+        raise AssertionError(f"policy 13.2: trace faults {errors[:5]}")
+    log(f"policy 13.2: every field but the versions and staleness equals "
+        f"the JAX package's run; served versions = the card's publishes "
+        f"{run['versions']}")
+
+    # (3) the same arrivals over copies of the trained cluster
+    def replay(device, table_path):
+        dispatch.set_default_policy(KernelPolicy())
+        table = PolicyTable.load(table_path)
+        ops.reset_launches()
+        got, restore_a = recording_answers()
+        calls, restore_s = recording_stump_shapes()
+        windows, rng_state, cfg = run["copy"]
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                server = se.serve(
+                    shard_cluster_from_numpy(windows, cfg,
+                                             rng_state=rng_state),
+                    run["pools"], 400.0, 3.0, 0, kill_owner=True,
+                    policy_table=table, autoscale_max=5, device=device)
+        finally:
+            restore_a()
+            restore_s()
+        policy_equal(server.report(), rep, f"policy 13.3 {device}")
+        return got, calls, dict(ops.LAUNCHES), table
+    t0 = time.perf_counter()
+    cpu, _, _, _ = replay("cpu", POLICY_DIR / "policy_table.json")
+    worst = answers_close(cpu, answers, "policy 13.3 cpu")
+    log(f"policy 13.3: {len(cpu)} responses on a copy of the trained "
+        f"cluster on the CPU's plain path: report equal to 13.2's, rid/"
+        f"tenant/version equal, max |margin diff| {worst:.3g} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    pinned = json.loads(json.dumps(POLICY_TABLE))
+    pinned["tenants"]["iot"]["kernel"]["backend"] = "torch"
+    policy_argv(POLICY_DIR, pinned, "pinned_table.json")
+    card, calls, pin_launches, table = replay(
+        CARD, POLICY_DIR / "pinned_table.json")
+    worst = answers_close(card, answers, "policy 13.3 pinned")
+    iot = table.kernel_for("iot", None)
+    split = {"default": sorted(set(dispatch.default_policy().choices
+                                   .values())),
+             "iot": sorted(set(iot.choices.values()))}
+    n_calls = {k: sum(c.values()) for k, c in calls.items()}
+    log(f"policy 13.3: iot pinned to torch on {CARD}: launches "
+        f"{pin_launches}; vote calls {n_calls}; choices {split}; max "
+        f"|margin diff| vs 13.2 {worst:.3g}; report equal to 13.2's "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if split != {"default": [kernel], "iot": ["torch"]} or \
+            pin_launches["stump_vote_fp_batched"] != 0 or \
+            n_calls["stump_vote_fp_batched"] <= 0 or \
+            pin_launches["stump_vote_batched"] != \
+            n_calls["stump_vote_batched"] or \
+            pin_launches["stump_vote_batched"] <= 0:
+        raise AssertionError("policy 13.3: the launches did not split by "
+                             "policy")
+
+    # (4) the dispatcher's host cost a call
+    dispatch.set_default_policy(KernelPolicy())
+    args = vote_inputs(gen, 1, 477, 1, 0)
+    us = host_us({"wrapper": lambda: ops.stump_vote_batched(*args),
+                  "launch_code": lambda: ops._stump_vote_batched_cuda(*args)})
+    added = us["wrapper"]["median"] - us["launch_code"]["median"]
+    event_ms = cuda_ms(lambda: ops.stump_vote_batched(*args), 50)
+    fleet = sum(fleet_launches.values())
+    log(f"policy 13.4: ops.stump_vote_batched at (1, 477, 1), host us a "
+        f"call in turns: wrapper {json.dumps(us['wrapper'])}, the cuda "
+        f"backend's launch code {json.dumps(us['launch_code'])}: the "
+        f"dispatcher adds {added:.2f} us a call, whose event time is "
+        f"{event_ms:.4f} ms; phase 7.2's full-width fleet run made "
+        f"{fleet} dispatched launches, so {added * fleet / 1e3:.4f} ms of "
+        f"its wall | {nvidia_smi()}")
+    dispatch.set_default_policy(old_policy)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3524,6 +3996,15 @@ def main() -> int:
         f"of phase 12: {dict(ops.LAUNCHES)}; phase 12 took "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # the policy-driven launcher: counts zeroed just before its step 2
+    # (the run of serve_ensemble) and read just after it
+    t0 = time.perf_counter()
+    policy_launches = policy_path(stump_shapes, fleet_launches)
+    torch.cuda.synchronize()
+    log(f"launches on the policy path (step 2): {policy_launches}; "
+        f"in all of phase 13: {dict(ops.LAUNCHES)}; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
     kernels = []
     MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "kernel_ms", "shape")
@@ -3539,6 +4020,8 @@ def main() -> int:
             **({"replay_launches": replay_launches[name],
                 "chain_launches": chain_launches[name]}
                if name in ("stump_scan", "stump_vote_batched") else {}),
+            **({"policy_launches": policy_launches[name]}
+               if name in ("stump_scan", *STUMP_KERNELS) else {}),
             **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()
                if label != "main"}))

@@ -162,6 +162,7 @@ class FederatedBoostEngine:
 
     def __init__(self, cfg: FedBoostConfig, data: Dict, mode: str,
                  weak: Optional[WeakLearnerSpec] = None,
+                 kernel_policy=None,
                  behavior_for: Optional[
                      Callable[[int], ClientBehavior]] = None,
                  engine: str = "events",
@@ -183,7 +184,15 @@ class FederatedBoostEngine:
         self.cfg = cfg
         self.mode = mode
         self.engine_kind = engine
-        self.weak = weak or get_weak_learner(cfg.weak_learner)
+        # kernel_policy: optional repro_torch.kernels.KernelPolicy routing
+        # the stump scans (the single fits and the fleet's batched ones)
+        # through the backend dispatcher, re-resolved per fit; None is the
+        # dispatcher's default (the kernel on the card).  It is bound into
+        # the spec get_weak_learner builds, so an explicit `weak` spec
+        # keeps its own fits and ignores it.
+        self.kernel_policy = kernel_policy
+        self.weak = weak or get_weak_learner(cfg.weak_learner,
+                                             policy=kernel_policy)
         self.rng = np.random.RandomState(cfg.seed)
         # {clients: [(x,y)...], val:(x,y), test:(x,y)}, moved to the device;
         # the fleet profile keeps the client shards as they came and stacks

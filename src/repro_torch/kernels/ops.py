@@ -1,15 +1,25 @@
-"""Public kernel entry points.
+"""Public kernel entry points, routed through the backend dispatcher.
 
-The tensor's device picks the implementation: a CPU tensor takes the plain
-PyTorch version in :mod:`repro_torch.kernels.ref`; a CUDA tensor launches
-the hand-written CUDA kernel (``csrc/*.cu``, built at first use by
-:mod:`repro_torch.kernels.build`) or raises.  There is no fall-back from
-the card to the plain version.
+Each wrapper names its kernel and hands the call to
+:func:`repro_torch.kernels.dispatch.dispatch`, which picks one of two
+backends per call: ``cuda``, the hand-written CUDA kernel (``csrc/*.cu``,
+built at first use by :mod:`repro_torch.kernels.build`), or ``torch``, the
+plain PyTorch version in :mod:`repro_torch.kernels.ref`.  With nothing
+pinned, a CUDA tensor launches the kernel and a CPU tensor takes the plain
+version; ``backend=`` (``"torch"`` | ``"cuda"``), ``policy=`` (a
+:class:`KernelPolicy`) and the ``REPRO_TORCH_KERNEL_BACKEND`` variable pin
+one (see the dispatcher's docstring for the order).  The block-shape
+kwargs (``block_t``/``block_n``/``block_q``/``block_k``) are the JAX
+package's; they default to None and reach no kernel here.  There is no
+fall-back from the card to the plain version: a kernel that fails to
+build or launch raises.
 
-``LAUNCHES`` counts, per kernel, the launches made in this process: each
-wrapper adds one exactly where it launches its kernel, so a run can show
-that its main path went through the kernels (:func:`reset_launches` zeroes
-the counts).
+This module holds the ``cuda`` backend's launch code (the ``_*_cuda``
+functions, which take CUDA tensors only).  ``LAUNCHES`` counts, per
+kernel, the launches made in this process: the launch code adds one
+exactly where it launches a kernel, so a run can show that its main path
+went through the kernels (:func:`reset_launches` zeroes the counts); a
+``torch`` call counts nothing, on any device.
 """
 from __future__ import annotations
 
@@ -17,12 +27,12 @@ import contextlib
 import ctypes
 import functools
 import math
-from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels.dispatch import KernelPolicy  # noqa: F401
 
 F32 = torch.float32
 LAUNCHES: Dict[str, int] = {"stump_scan": 0, "stump_scan_batched": 0,
@@ -37,26 +47,18 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-@dataclass(frozen=True)
-class KernelPolicy:
-    """Per-tenant kernel choice.  ``fused_fingerprint`` opts a serving
-    tenant with a result cache into the one-launch
-    ``stump_vote_fp_batched`` path (``serve/engine.py``)."""
-    fused_fingerprint: bool = False
-
-
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU, False when every one lies on
     one CUDA device; anything else raises."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"kernel inputs span devices {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
+    return dispatch.tensors_device(tensors) == "cpu"
+
+
+def _card(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device: the ``cuda``
+    backend never runs the plain version."""
+    if _on_cpu(*tensors):
+        raise ValueError("the cuda kernel backend takes CUDA tensors; "
+                         "these lie on the CPU")
 
 
 def _f32(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -179,13 +181,21 @@ def _stump_scan_launch(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
 
 def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-               thresholds: torch.Tensor) -> torch.Tensor:
+               thresholds: torch.Tensor, *, block_n: Optional[int] = None,
+               backend: Optional[str] = None,
+               policy: Optional[KernelPolicy] = None) -> torch.Tensor:
     """Weighted stump errors over the (F, T) grid: x (N,F), y/w (N,),
     thresholds (F,T) -> (F,T) f32 (see :func:`ref.stump_scan_ref`).  On
     the card the rows are split as :func:`scan_split` picks for the card's
     SM count; the sum's order is :func:`ref.scan_in_kernel_order`'s."""
-    if _on_cpu(x, y, w, thresholds):
-        return ref.stump_scan_ref(x, y, w, thresholds)
+    return dispatch.dispatch("stump_scan", (x, y, w, thresholds),
+                             {"block_n": block_n}, policy=policy,
+                             backend=backend)
+
+
+def _stump_scan_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                     thresholds: torch.Tensor) -> torch.Tensor:
+    _card(x, y, w, thresholds)
     N, F = x.shape
     T = thresholds.shape[1]
     if y.shape != (N,) or w.shape != (N,) or thresholds.shape != (F, T):
@@ -201,14 +211,25 @@ def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
 
 def stump_scan_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                       thresholds: torch.Tensor) -> torch.Tensor:
+                       thresholds: torch.Tensor, *,
+                       block_n: Optional[int] = None,
+                       backend: Optional[str] = None,
+                       policy: Optional[KernelPolicy] = None
+                       ) -> torch.Tensor:
     """Per-slot weighted stump errors for a stacked fleet batch: x (B,N,F),
     y/w (B,N), thresholds (B,F,T) -> (B,F,T) f32 (see
     :func:`ref.stump_scan_batched_ref`, whose bits the kernel gives).  Any
     B is launched as it is: the kernel's grid is flat, so no slot padding
     is needed."""
-    if _on_cpu(x, y, w, thresholds):
-        return ref.stump_scan_batched_ref(x, y, w, thresholds)
+    return dispatch.dispatch("stump_scan_batched", (x, y, w, thresholds),
+                             {"block_n": block_n}, policy=policy,
+                             backend=backend)
+
+
+def _stump_scan_batched_cuda(x: torch.Tensor, y: torch.Tensor,
+                             w: torch.Tensor, thresholds: torch.Tensor
+                             ) -> torch.Tensor:
+    _card(x, y, w, thresholds)
     B, N, F = x.shape
     T = thresholds.shape[2]
     if (y.shape != (B, N) or w.shape != (B, N)
@@ -249,7 +270,11 @@ def _fp_outputs(B: int, N: int, dev):
 
 
 def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
-                       pol: torch.Tensor, alphas: torch.Tensor
+                       pol: torch.Tensor, alphas: torch.Tensor, *,
+                       block_t: Optional[int] = None,
+                       block_n: Optional[int] = None,
+                       backend: Optional[str] = None,
+                       policy: Optional[KernelPolicy] = None
                        ) -> torch.Tensor:
     """Fused stump margin + weighted vote for packed serving batches:
     xsel (B,T,N), thr/pol/alphas (B,T) -> (B,N) f32.  Zero-alpha padding
@@ -259,8 +284,15 @@ def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
     (``csrc/stump_vote.cu``; :func:`ref.stump_vote_in_kernel_order`
     emulates it): a column's result has the same bits whatever else
     shares the batch, and :func:`stump_vote_fp_batched` gives the same."""
-    if _on_cpu(xsel, thr, pol, alphas):
-        return ref.stump_vote_batched_ref(xsel, thr, pol, alphas)
+    return dispatch.dispatch("stump_vote_batched", (xsel, thr, pol, alphas),
+                             {"block_t": block_t, "block_n": block_n},
+                             policy=policy, backend=backend)
+
+
+def _stump_vote_batched_cuda(xsel: torch.Tensor, thr: torch.Tensor,
+                             pol: torch.Tensor, alphas: torch.Tensor
+                             ) -> torch.Tensor:
+    _card(xsel, thr, pol, alphas)
     B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
     out = torch.empty((B, N), dtype=F32, device=xsel.device)
     if B * N == 0:
@@ -274,13 +306,24 @@ def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
 
 
 def stump_vote_fp_batched(xsel: torch.Tensor, thr: torch.Tensor,
-                          pol: torch.Tensor, alphas: torch.Tensor):
+                          pol: torch.Tensor, alphas: torch.Tensor, *,
+                          block_t: Optional[int] = None,
+                          block_n: Optional[int] = None,
+                          backend: Optional[str] = None,
+                          policy: Optional[KernelPolicy] = None):
     """One-launch serving path: :func:`stump_vote_batched` plus the two
     xor-fold fingerprint lanes per column -> ``(margins (B,N) f32,
     fp0 (B,N), fp1 (B,N))``, the lanes uint32 bits in int32 tensors and
-    identical bit for bit on every device."""
-    if _on_cpu(xsel, thr, pol, alphas):
-        return ref.stump_vote_fp_batched_ref(xsel, thr, pol, alphas)
+    identical bit for bit on every device and backend."""
+    return dispatch.dispatch("stump_vote_fp_batched",
+                             (xsel, thr, pol, alphas),
+                             {"block_t": block_t, "block_n": block_n},
+                             policy=policy, backend=backend)
+
+
+def _stump_vote_fp_batched_cuda(xsel: torch.Tensor, thr: torch.Tensor,
+                                pol: torch.Tensor, alphas: torch.Tensor):
+    _card(xsel, thr, pol, alphas)
     B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
     out, f0, f1 = _fp_outputs(B, N, xsel.device)
     if B * N == 0:
@@ -294,7 +337,11 @@ def stump_vote_fp_batched(xsel: torch.Tensor, thr: torch.Tensor,
     return out, f0, f1
 
 
-def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor
+def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor, *,
+                          block_t: Optional[int] = None,
+                          block_n: Optional[int] = None,
+                          backend: Optional[str] = None,
+                          policy: Optional[KernelPolicy] = None
                           ) -> torch.Tensor:
     """Per-tenant weighted ensemble margins for packed serving batches:
     margins (B,T,N), alphas (B,T) -> (B,N) f32, sum_t alphas * margins
@@ -306,8 +353,14 @@ def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor
     its own alphas and margins: the same bits run to run and whatever else
     shares the batch (B, N, zero padding in T or N).  Zero-alpha padding
     rows over zero margins add exactly nothing; no padding is needed."""
-    if _on_cpu(margins, alphas):
-        return ref.ensemble_vote_batched_ref(margins, alphas)
+    return dispatch.dispatch("ensemble_vote_batched", (margins, alphas),
+                             {"block_t": block_t, "block_n": block_n},
+                             policy=policy, backend=backend)
+
+
+def _ensemble_vote_batched_cuda(margins: torch.Tensor, alphas: torch.Tensor
+                                ) -> torch.Tensor:
+    _card(margins, alphas)
     B, T, N = margins.shape
     if alphas.shape != (B, T):
         raise ValueError(f"alphas must be {(B, T)}, got {tuple(alphas.shape)}")
@@ -323,14 +376,23 @@ def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor
     return out
 
 
-def ensemble_vote(margins: torch.Tensor, alphas: torch.Tensor
-                  ) -> torch.Tensor:
+def ensemble_vote(margins: torch.Tensor, alphas: torch.Tensor, *,
+                  block_t: Optional[int] = None,
+                  block_n: Optional[int] = None,
+                  backend: Optional[str] = None,
+                  policy: Optional[KernelPolicy] = None) -> torch.Tensor:
     """Weighted ensemble margin H = sum_t alphas_t margins_t: margins (T,N),
     alphas (T,) -> (N,) f32 (see :func:`ref.ensemble_vote_ref`).  On the
     card: the batched kernel at B = 1, the same fixed order, so a column
     gives the bits :func:`ensemble_vote_batched` gives it in any batch."""
-    if _on_cpu(margins, alphas):
-        return ref.ensemble_vote_ref(margins, alphas)
+    return dispatch.dispatch("ensemble_vote", (margins, alphas),
+                             {"block_t": block_t, "block_n": block_n},
+                             policy=policy, backend=backend)
+
+
+def _ensemble_vote_cuda(margins: torch.Tensor, alphas: torch.Tensor
+                        ) -> torch.Tensor:
+    _card(margins, alphas)
     T, N = margins.shape
     if alphas.shape != (T,):
         raise ValueError(f"alphas must be {(T,)}, got {tuple(alphas.shape)}")
@@ -423,7 +485,10 @@ def _dist_update_launch(alpha, D: torch.Tensor, y: torch.Tensor,
     return out, Z
 
 
-def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
+def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
+                *, block_n: Optional[int] = None,
+                backend: Optional[str] = None,
+                policy: Optional[KernelPolicy] = None):
     """Fused AdaBoost distribution update (paper eq. 4) -> ``(D', Z)``:
     w = D * exp(-alpha * y * h), Z = sum(w) as a 0-d f32 tensor,
     D' = w / (Z + 1e-30) (see :func:`ref.dist_update_ref`).  ``alpha`` is a
@@ -434,9 +499,15 @@ def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
     (:func:`ref.dist_update_in_kernel_order`) and rounded once, so it is
     the same run to run.  A number or a CPU tensor alpha goes to the
     kernel by value, a CUDA tensor by pointer: the call never waits for
-    the card."""
-    if _on_cpu(D, y, h):
-        return ref.dist_update_ref(alpha, D, y, h)
+    the card (its bucket comes from D alone)."""
+    return dispatch.dispatch("dist_update", (alpha, D, y, h),
+                             {"block_n": block_n}, policy=policy,
+                             backend=backend)
+
+
+def _dist_update_cuda(alpha, D: torch.Tensor, y: torch.Tensor,
+                      h: torch.Tensor):
+    _card(D, y, h)
     N = D.shape[0]
     if D.dim() != 1 or y.shape != (N,) or h.shape != (N,):
         raise ValueError(f"dist_update shapes D{tuple(D.shape)} "
@@ -476,7 +547,11 @@ def tma_ready(x: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    backend: Optional[str] = None,
+                    policy: Optional[KernelPolicy] = None) -> torch.Tensor:
     """Softmax attention, q (B,H,T,d), k and v (B,Hkv,T,d) with H a
     multiple of Hkv (query head h reads key and value head h // (H/Hkv))
     -> (B,H,T,d) in q's dtype, f32 softmax at scale 1/sqrt(d); under
@@ -488,10 +563,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     that TMA cannot read, such as rows not a multiple of 16 bytes apart,
     is copied once with padded rows).  ``out``, when given, is a (B,H,T,d)
     tensor of q's dtype with last stride 1 that receives the result and is
-    returned: ``out=buf.transpose(1, 2)`` writes a (B,T,H,d) buffer."""
-    if _on_cpu(q, k, v, *(() if out is None else (out,))):
-        res = ref.flash_attention_ref(q, k, v, causal=causal)
-        return res if out is None else out.copy_(res)
+    returned: ``out=buf.transpose(1, 2)`` writes a (B,T,H,d) buffer, on
+    either backend."""
+    return dispatch.dispatch("flash_attention", (q, k, v),
+                             {"causal": causal, "out": out,
+                              "block_q": block_q, "block_k": block_k},
+                             policy=policy, backend=backend)
+
+
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    _card(q, k, v, *(() if out is None else (out,)))
     shape, kv_shape = q.shape, k.shape
     if len(shape) != 4 or len(kv_shape) != 4 or v.shape != kv_shape \
             or kv_shape[0] != shape[0] or kv_shape[2:] != shape[2:] \
@@ -526,3 +610,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _on_device(q):
         _launch("flash_attention", load().flash_attention_launch, *args)
     return out
+
+
+dispatch.CUDA_IMPLS.update({
+    "stump_scan": _stump_scan_cuda,
+    "stump_scan_batched": _stump_scan_batched_cuda,
+    "ensemble_vote": _ensemble_vote_cuda,
+    "ensemble_vote_batched": _ensemble_vote_batched_cuda,
+    "stump_vote_batched": _stump_vote_batched_cuda,
+    "stump_vote_fp_batched": _stump_vote_fp_batched_cuda,
+    "flash_attention": _flash_attention_cuda,
+    "dist_update": _dist_update_cuda,
+})

@@ -77,15 +77,20 @@ def stump_thresholds(x: torch.Tensor, n_thresholds: int = 16
 
 
 def fit_stump(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-              thresholds: torch.Tensor) -> Dict[str, torch.Tensor]:
+              thresholds: torch.Tensor, policy=None
+              ) -> Dict[str, torch.Tensor]:
     """Weighted-error-optimal stump.
 
     x: (N,F); y: (N,) in {-1,+1}; w: (N,) distribution; thresholds: (F,T).
     Returns {"feature", "threshold", "polarity"} 0-d tensors.
 
     err(f,t,+) = sum_i w_i * [sign(x_if - t) != y_i]; polarity flips sign.
+    The scan goes through the kernel dispatcher under ``policy`` (a
+    :class:`repro_torch.kernels.KernelPolicy`).  ``None`` means the
+    dispatcher's default: the kernel on the card, the plain version on the
+    CPU.  (In the JAX package ``None`` means its jnp oracle.)
     """
-    err_pos = kops.stump_scan(x, y, w, thresholds)
+    err_pos = kops.stump_scan(x, y, w, thresholds, policy=policy)
     return _pick_stump(err_pos, thresholds)
 
 
@@ -122,7 +127,8 @@ def _pick_stump(err_pos: torch.Tensor, thresholds: torch.Tensor
 
 
 def fit_stump_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                      thresholds: torch.Tensor) -> Dict[str, torch.Tensor]:
+                      thresholds: torch.Tensor, policy=None
+                      ) -> Dict[str, torch.Tensor]:
     """Fit one stump per fleet slot in a single ``stump_scan_batched``
     launch.
 
@@ -130,9 +136,9 @@ def fit_stump_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     {"feature", "threshold", "polarity"} tensors of shape (B,), each slot
     picked by :func:`_pick_stump`'s rule.  ``w`` rows need not be
     normalized (the argmin is scale-invariant); the convention is to pass
-    D_t rows directly.
+    D_t rows directly.  ``policy`` is :func:`fit_stump`'s.
     """
-    err_pos = kops.stump_scan_batched(x, y, w, thresholds)
+    err_pos = kops.stump_scan_batched(x, y, w, thresholds, policy=policy)
     return _pick_stump_batched(err_pos, thresholds)
 
 
@@ -300,15 +306,27 @@ class WeakLearnerSpec:
     fit_batched: Optional[Callable] = None
 
 
-def get_weak_learner(name: str, n_thresholds: int = 16) -> WeakLearnerSpec:
+def get_weak_learner(name: str, n_thresholds: int = 16,
+                     policy=None) -> WeakLearnerSpec:
     """The weak-learner family ``name``.  Only the MLP's fit draws from its
     random generator argument; the stump search is exhaustive and the
-    logistic fit starts from zeros."""
+    logistic fit starts from zeros.
+
+    ``policy`` (a :class:`repro_torch.kernels.KernelPolicy`) routes the
+    stump scans, the single fit's and the fleet's batched one, through the
+    kernel dispatcher, re-resolved on every fit.
+    This is a deliberate divergence from the JAX package: there ``None``
+    keeps its jnp oracle; here ``None`` means the dispatcher's default,
+    which is the kernel on the card and the plain version on the CPU."""
     if name == "stump":
         def fit(x, y, w, generator=None):
-            return fit_stump(x, y, w, stump_thresholds(x, n_thresholds))
+            return fit_stump(x, y, w, stump_thresholds(x, n_thresholds),
+                             policy)
+
+        def fit_batched(x, y, w, thresholds):
+            return fit_stump_batched(x, y, w, thresholds, policy)
         return WeakLearnerSpec("stump", fit, predict_stump,
-                               lambda p: STUMP_BYTES, fit_stump_batched)
+                               lambda p: STUMP_BYTES, fit_batched)
     if name == "logistic":
         return WeakLearnerSpec("logistic", fit_logistic, predict_logistic,
                                _pytree_bytes)

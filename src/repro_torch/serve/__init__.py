@@ -6,8 +6,9 @@
 # rendezvous hashing and replicates snapshots with anti-entropy gossip;
 # the result cache memoizes margins per (tenant, version, x-hash).
 # FleetAutoscaler scales the host count on queue-depth/p99 pressure (the
-# same eq.-1 controller).
-from repro_torch.kernels.ops import KernelPolicy  # noqa: F401
+# same eq.-1 controller), and PolicyTable resolves batching + kernel
+# policies per (tenant, host).
+from repro_torch.kernels.dispatch import KernelPolicy  # noqa: F401
 from repro_torch.serve.registry import (  # noqa: F401
     EnsembleRegistry, EnsembleSnapshot, pack_stumps)
 from repro_torch.serve.batching import (  # noqa: F401
@@ -17,6 +18,7 @@ from repro_torch.serve.cache import (  # noqa: F401
 from repro_torch.serve.engine import (  # noqa: F401
     BatchEvaluator, EvalStats, Response)
 from repro_torch.serve.metrics import ServeMetrics, TenantMetrics  # noqa: F401
+from repro_torch.serve.policy import PolicyTable  # noqa: F401
 from repro_torch.serve.service import (  # noqa: F401
     EnsembleServer, ShardedEnsembleServer)
 from repro_torch.serve.shard import (  # noqa: F401

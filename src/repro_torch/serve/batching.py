@@ -25,9 +25,9 @@ unbounded backlog that would blow the latency SLO for everyone.
 from __future__ import annotations
 
 import itertools
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass, field
-from typing import Deque, Iterator, List, Optional
+from typing import Callable, Deque, Iterator, List, Optional
 
 import numpy as np
 
@@ -105,19 +105,41 @@ class AdaptiveWindow:
 
 
 class MicroBatchQueue:
-    """FIFO request queue with budget-based admission control.  Per-tenant
-    budgets and batch caps (the reference's policy-table path) are not
-    ported yet."""
+    """FIFO request queue with budget-based admission control.
+
+    With a ``tenant_cfg`` resolver attached (the per-(tenant, host)
+    :class:`~repro_torch.serve.policy.PolicyTable` path), two per-tenant
+    knobs apply on top of the host-level config, in both directions:
+
+    * admission: a tenant's queued requests may not exceed *its* resolved
+      ``queue_budget`` — a cold tenant with a small budget gets early
+      backpressure instead of a deep backlog (its accepted requests stay
+      near the queue head: minimum latency).  A hot tenant's budget
+      *above* the host scope is honored too: its submits are admitted
+      until the total queue reaches the larger of the two budgets, so
+      raising a tenant is not a silent no-op;
+    * batching: one dispatched batch carries at most the tenant's resolved
+      ``max_batch`` of its requests; the overflow keeps its FIFO position
+      for the next batch, so a hot tenant's burst cannot monopolize every
+      slot of a shared batch beyond its policy's share.  A tenant cap
+      above the host scope lifts the shared batch bound to match (its big
+      batches ride with everyone else's policy-bounded shares).
+    """
 
     def __init__(self, cfg: BatchConfig,
-                 rid_counter: Optional[Iterator[int]] = None):
+                 rid_counter: Optional[Iterator[int]] = None,
+                 tenant_cfg: Optional[Callable[[str], BatchConfig]] = None):
         """``rid_counter`` lets several queues share one id space — the
         sharded fleet passes a common counter so a response's rid is unique
-        across hosts, not just within one."""
+        across hosts, not just within one.  ``tenant_cfg`` resolves a
+        tenant's effective :class:`BatchConfig` (None = host config for
+        every tenant)."""
         self.cfg = cfg
         self._q: Deque[Request] = deque()
         self._rids = (rid_counter if rid_counter is not None
                       else itertools.count())
+        self._tenant_cfg = tenant_cfg
+        self._depth: Counter = Counter()      # per-tenant queued counts
         self.rejected = 0
 
     def __len__(self) -> int:
@@ -127,31 +149,49 @@ class MicroBatchQueue:
     def depth(self) -> int:
         return len(self._q)
 
+    def tenant_depth(self, tenant: str) -> int:
+        return self._depth[tenant]
+
+    def _cfg_for(self, tenant: str) -> BatchConfig:
+        return self._tenant_cfg(tenant) if self._tenant_cfg else self.cfg
+
     def submit(self, tenant: str, x, now: float,
                ctx=None) -> Optional[Request]:
-        """Enqueue; returns None (backpressure) when the queue is at its
-        budget."""
-        if len(self._q) >= self.cfg.queue_budget:
+        """Enqueue; returns None (backpressure) when the tenant is at its
+        resolved budget, or the total queue is at the larger of the host
+        budget and the tenant's own (so a hot tenant's raised budget is
+        real capacity, not a no-op behind the host cap)."""
+        budget = self.cfg.queue_budget
+        if self._tenant_cfg is not None:
+            t_budget = self._cfg_for(tenant).queue_budget
+            if self._depth[tenant] >= t_budget:
+                self.rejected += 1
+                return None
+            budget = max(budget, t_budget)
+        if len(self._q) >= budget:
             self.rejected += 1
             return None
         req = Request(rid=next(self._rids), tenant=tenant,
                       x=np.asarray(x, np.float32), t_submit=float(now),
                       ctx=ctx)
         self._q.append(req)
+        self._depth[tenant] += 1
         return req
 
     def requeue(self, req: Request) -> None:
         """Re-admit a request rerouted from a drained (scaled-in) host.
-        Admission was already granted once, so the budget check is
+        Admission was already granted once, so the budget checks are
         skipped — dropping an accepted request is strictly worse than a
         transiently over-budget queue.  The request keeps its rid and
         original submit time (its latency keeps accruing across the move)."""
         self._q.append(req)
+        self._depth[req.tenant] += 1
 
     def pop_all(self) -> List[Request]:
         """Drain every queued request (scale-in hand-off), FIFO order."""
         out = list(self._q)
         self._q.clear()
+        self._depth.clear()
         return out
 
     def oldest_t(self) -> Optional[float]:
@@ -165,5 +205,31 @@ class MicroBatchQueue:
         return self._q[self.cfg.max_batch - 1].t_submit
 
     def pop_batch(self) -> List[Request]:
-        n = min(len(self._q), self.cfg.max_batch)
-        return [self._q.popleft() for _ in range(n)]
+        if self._tenant_cfg is None:
+            n = min(len(self._q), self.cfg.max_batch)
+            out = [self._q.popleft() for _ in range(n)]
+        else:
+            # honor per-tenant batch caps; skipped requests keep FIFO
+            # order.  A queued tenant whose cap exceeds the host scope
+            # lifts the shared bound — its policy promised batches that
+            # big — while every tenant's own share stays policy-bounded.
+            caps = {t: max(1, self._cfg_for(t).max_batch)
+                    for t, d in self._depth.items() if d > 0}
+            bound = max([self.cfg.max_batch] + list(caps.values()))
+            # the batch can never exceed what the caps allow; stopping at
+            # that bound keeps a drain against capped-out tenants linear
+            bound = min(bound, sum(min(self._depth[t], c)
+                                   for t, c in caps.items()))
+            out, kept, taken = [], deque(), Counter()
+            while self._q and len(out) < bound:
+                req = self._q.popleft()
+                if taken[req.tenant] >= caps[req.tenant]:
+                    kept.append(req)
+                    continue
+                taken[req.tenant] += 1
+                out.append(req)
+            if kept:                   # skipped all predate the remainder
+                kept.extend(self._q)
+                self._q = kept
+        self._depth.subtract(r.tenant for r in out)
+        return out

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ops import KernelPolicy
+from repro_torch.kernels.dispatch import KernelPolicy
 from repro_torch.models.weak import get_weak_learner
 from repro_torch.serve.batching import Request
 from repro_torch.serve.cache import ResultCache, feature_hash, fingerprint_key
@@ -73,9 +73,11 @@ class BatchEvaluator:
     most recent batch.
 
     ``policy_for`` resolves a tenant's own kernel policy (None falls back
-    to ``policy``); tenants resolving to distinct policies are packed into
-    separate kernel launches.  The vote kernels run on ``device`` (the card
-    by default; asking for it without one raises).
+    to ``policy``); tenants resolving to policies that differ in value are
+    packed into separate kernel launches, each dispatched under its own
+    policy.  The votes run on ``device`` (the card by default; asking for
+    it without one raises), through the kernel dispatcher: with no policy,
+    the kernels on the card and the plain versions on the CPU.
     """
 
     def __init__(self, registry: EnsembleRegistry, *,
@@ -150,12 +152,12 @@ class BatchEvaluator:
                 (stump_group if snap.weak_name == "stump"
                  else generic_group).append((snap, reqs))
 
-        for sub in self._by_policy(fused_group):
-            self._eval_stumps_fused(sub, margins)
-        for sub in self._by_policy(stump_group):
-            self._eval_stumps(sub, margins)
-        for sub in self._by_policy(generic_group):
-            self._eval_generic(sub, margins)
+        for pol, sub in self._by_policy(fused_group):
+            self._eval_stumps_fused(sub, margins, pol)
+        for pol, sub in self._by_policy(stump_group):
+            self._eval_stumps(sub, margins, pol)
+        for pol, sub in self._by_policy(generic_group):
+            self._eval_generic(sub, margins, pol)
         for rid, src_rid in dupes:              # fan the one margin out
             margins[rid] = margins[src_rid]
         if self.cache is not None:              # fill after the vote
@@ -180,17 +182,31 @@ class BatchEvaluator:
                 return p
         return self.policy
 
+    @staticmethod
+    def _policy_key(pol: Optional[KernelPolicy]):
+        """Value key for launch grouping: two policies that would resolve
+        identically share one packed launch — tenants loaded from a JSON
+        table each get their own KernelPolicy instance, and partitioning
+        by object identity would turn one cross-tenant batch into one
+        kernel launch per tenant."""
+        if pol is None:
+            return None
+        return (pol.backend, pol.env_var, pol.fused_fingerprint,
+                tuple(sorted(pol.table.items())))
+
     def _by_policy(self, group):
-        """Partition one group into per-kernel-policy launches (policies
-        compare by value).  Without a resolver this is a single launch."""
+        """Partition one weak-learner group into ``(policy, sub-group)``
+        launches.  Without a resolver this is a single launch under
+        ``self.policy``."""
         if not group:
             return []
         if self.policy_for is None:
-            return [group]
-        parts: Dict[Optional[KernelPolicy], list] = {}
+            return [(self.policy, group)]
+        parts: Dict[object, Tuple[Optional[KernelPolicy], list]] = {}
         for snap, reqs in group:
-            parts.setdefault(self._resolved_policy(snap.tenant),
-                             []).append((snap, reqs))
+            pol = self._resolved_policy(snap.tenant)
+            parts.setdefault(self._policy_key(pol),
+                             (pol, []))[1].append((snap, reqs))
         return list(parts.values())
 
     # ----------------------------------------------------------- stump path
@@ -223,15 +239,18 @@ class BatchEvaluator:
                 dev[n_x + B * T:n_x + 2 * B * T].view(B, T),
                 dev[n_x + 2 * B * T:].view(B, T))
 
-    def _eval_stumps(self, group, margins: Dict[int, float]) -> None:
+    def _eval_stumps(self, group, margins: Dict[int, float],
+                     policy: Optional[KernelPolicy]) -> None:
         xsel, thr, pol, alf = self._pack_stumps(group)
         self.kernel_launches += 1
-        out = kops.stump_vote_batched(xsel, thr, pol, alf).cpu().numpy()
+        out = kops.stump_vote_batched(xsel, thr, pol, alf,
+                                      policy=policy).cpu().numpy()
         for b, (_, reqs) in enumerate(group):
             for n, r in enumerate(reqs):
                 margins[r.rid] = float(out[b, n])
 
-    def _eval_stumps_fused(self, group, margins: Dict[int, float]) -> None:
+    def _eval_stumps_fused(self, group, margins: Dict[int, float],
+                           policy: Optional[KernelPolicy]) -> None:
         """One-launch path: the kernel emits margins *and* the cache key.
 
         Every request is packed (no pre-lookup — that would need a host
@@ -241,7 +260,8 @@ class BatchEvaluator:
         serving the cache value on a hit keeps replay batches byte-stable."""
         xsel, thr, pol, alf = self._pack_stumps(group)
         self.kernel_launches += 1
-        out, f0, f1 = kops.stump_vote_fp_batched(xsel, thr, pol, alf)
+        out, f0, f1 = kops.stump_vote_fp_batched(xsel, thr, pol, alf,
+                                                 policy=policy)
         out = out.cpu().numpy()
         f0 = f0.cpu().numpy().view(np.uint32)       # the lanes' uint32 bits
         f1 = f1.cpu().numpy().view(np.uint32)
@@ -272,7 +292,8 @@ class BatchEvaluator:
         self._device_learners[snap.tenant] = (snap, learners)
         return learners
 
-    def _eval_generic(self, group, margins: Dict[int, float]) -> None:
+    def _eval_generic(self, group, margins: Dict[int, float],
+                      policy: Optional[KernelPolicy]) -> None:
         """Per-learner predicts build the (B, T, N) margin stack on the
         device (zero rows and columns pad it), then one
         ``ensemble_vote_batched`` launch takes every tenant's vote."""
@@ -290,7 +311,8 @@ class BatchEvaluator:
             alf[b, :snap.n_learners] = snap.alphas.numpy()
         self.kernel_launches += 1
         out = kops.ensemble_vote_batched(
-            m, torch.from_numpy(alf).to(self.device)).cpu().numpy()
+            m, torch.from_numpy(alf).to(self.device),
+            policy=policy).cpu().numpy()
         for b, (_, reqs) in enumerate(group):
             for n, r in enumerate(reqs):
                 margins[r.rid] = float(out[b, n])

@@ -29,8 +29,11 @@ attaches its invalidation hook to the registry so snapshots landing by
 publish *or* gossip sweep that tenant's stale entries.
 
 :class:`ShardedEnsembleServer` runs one such server per host of a
-:class:`~repro_torch.serve.shard.ShardCluster`.  The per-(tenant, host)
-policy table is not ported yet.
+:class:`~repro_torch.serve.shard.ShardCluster`.  A
+:class:`~repro_torch.serve.policy.PolicyTable` makes batching and kernel
+policies resolve per (tenant, host) on both.  The JAX package's
+deprecated ``interpret=`` switch picks a TPU substrate and has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -40,17 +43,15 @@ import time
 from typing import Callable, Iterator, List, Optional, Tuple
 
 from repro_torch import obs
-from repro_torch.kernels.ops import KernelPolicy
+from repro_torch.kernels.dispatch import KernelPolicy
 from repro_torch.serve.batching import (
     AdaptiveWindow, BatchConfig, MicroBatchQueue)
 from repro_torch.serve.cache import ResultCache
 from repro_torch.serve.engine import BatchEvaluator, Response
 from repro_torch.device import resolve_device
 from repro_torch.serve.metrics import ServeMetrics, weighted_percentile
+from repro_torch.serve.policy import PolicyTable
 from repro_torch.serve.registry import EnsembleRegistry
-
-UNPORTED_POLICY_TABLE = ("policy_table is not ported yet; pass policy_for= "
-                         "per tenant")
 
 
 class EnsembleServer:
@@ -60,20 +61,35 @@ class EnsembleServer:
                  policy: Optional[KernelPolicy] = None,
                  policy_for: Optional[
                      Callable[[str], Optional[KernelPolicy]]] = None,
-                 policy_table=None,
+                 policy_table: Optional[PolicyTable] = None,
                  rid_counter: Optional[Iterator[int]] = None,
                  host_id: Optional[str] = None,
                  device="cuda"):
-        # policy_for: per-tenant kernel policies (None -> ``policy``), the
-        # slice of the policy table the evaluator reads; the table itself
-        # is not ported yet.  rid_counter: an id space shared with other
-        # hosts of a fleet.
+        # per-(tenant, host) policies: the host-level slice of the table
+        # supplies this server's own config, the (tenant, host) slice
+        # drives per-tenant admission/batch caps in the queue and
+        # per-tenant kernel policies in the evaluator.  An explicit cfg
+        # passed alongside a table becomes the base the table's override
+        # layers compose onto (with_default), so it is never silently
+        # discarded.  policy_for: per-tenant kernel policies given
+        # directly (None -> ``policy``), where no table is given.
+        # rid_counter: an id space shared with other hosts of a fleet.
+        if policy_table is not None and policy_for is not None:
+            raise ValueError("pass policy_table= or policy_for=, not both")
+        if cfg is not None and policy_table is not None:
+            policy_table = policy_table.with_default(cfg)
+        self.policy_table = policy_table
+        self.host_id = host_id
         if policy_table is not None:
-            raise NotImplementedError(UNPORTED_POLICY_TABLE)
+            cfg = policy_table.batch_for(host=host_id)
         self.cfg = cfg or BatchConfig()
         self.registry = registry
-        self.host_id = host_id
-        self.queue = MicroBatchQueue(self.cfg, rid_counter)
+        tenant_cfg = None
+        if policy_table is not None:
+            tenant_cfg = lambda t: policy_table.batch_for(t, host_id)
+            policy_for = lambda t: policy_table.kernel_for(t, host_id)
+        self.queue = MicroBatchQueue(self.cfg, rid_counter,
+                                     tenant_cfg=tenant_cfg)
         self.window = AdaptiveWindow(self.cfg)
         cache = (ResultCache(self.cfg.cache_capacity)
                  if self.cfg.cache_capacity > 0 else None)
@@ -243,17 +259,25 @@ class ShardedEnsembleServer:
     gossip-warmed replica and :meth:`remove_host` drains a victim without
     dropping any accepted request — the
     :class:`~repro_torch.serve.autoscale.FleetAutoscaler` drives both from
-    the queue-depth/p99 pressure signal.
+    the queue-depth/p99 pressure signal.  A :class:`PolicyTable` makes
+    batching and kernel policies resolve per (tenant, host), on the hosts
+    added later too.
     """
 
     def __init__(self, cluster, cfg: Optional[BatchConfig] = None, *,
                  service_model: Optional[Callable[[int], float]] = None,
                  policy: Optional[KernelPolicy] = None,
-                 policy_table=None,
+                 policy_table: Optional[PolicyTable] = None,
                  device="cuda"):
-        if policy_table is not None:
-            raise NotImplementedError(UNPORTED_POLICY_TABLE)
         self.cluster = cluster
+        # an explicit cfg composes with the table (it becomes the fleet
+        # default the override layers stack onto) instead of being
+        # silently discarded
+        if cfg is not None and policy_table is not None:
+            policy_table = policy_table.with_default(cfg)
+        self.policy_table = policy_table
+        if cfg is None and policy_table is not None:
+            cfg = policy_table.batch_for()       # fleet-wide default slice
         self.cfg = cfg or BatchConfig()
         self.policy = policy
         self.device = resolve_device(device)
@@ -271,9 +295,14 @@ class ShardedEnsembleServer:
                               for hid in cluster.hosts}
 
     def _make_server(self, host_id: str) -> EnsembleServer:
-        server = EnsembleServer(self.cluster.hosts[host_id].registry,
-                                self.cfg, service_model=self.service_model,
+        # self.policy_table already has any explicit cfg folded in as its
+        # default, so the host server resolves per-host config from it;
+        # without a table, the fleet cfg applies verbatim
+        cfg = None if self.policy_table is not None else self.cfg
+        server = EnsembleServer(self.cluster.hosts[host_id].registry, cfg,
+                                service_model=self.service_model,
                                 policy=self.policy, rid_counter=self._rids,
+                                policy_table=self.policy_table,
                                 host_id=host_id, device=self.device)
         if self._slo is not None:
             server.on_slo = self._slo.record_completion

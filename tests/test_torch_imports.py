@@ -38,7 +38,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.obs.audit", "repro_torch.chain",
             "repro_torch.chain.core", "repro_torch.chain.registry",
             "repro_torch.chain.cluster", "repro_torch.launch.obs_report",
-            "repro_torch.core.controllers"} <= set(mods)
+            "repro_torch.core.controllers", "repro_torch.kernels.dispatch",
+            "repro_torch.serve.policy",
+            "repro_torch.launch.serve_ensemble"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -74,7 +76,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core import FederatedBoostEngine
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, serve_ensemble
     from repro_torch.models import Model
     from repro_torch.serve import (BatchEvaluator, EnsembleRegistry,
                                    ShardCluster, ShardedEnsembleServer)
@@ -105,6 +107,8 @@ def test_entry_points_default_to_the_card():
         Model(lm)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--tokens", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_ensemble.main(["--domains", "iot", "--rounds", "1"])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -185,16 +185,19 @@ def test_packed_batch_lanes_bit_equal(trained):
 
 
 def test_unported_serving_paths_raise():
-    """The per-(tenant, host) policy table is still unported: both servers
-    refuse it.  Without it the sharded fleet serves."""
-    from repro_torch.serve import (GossipConfig, ShardCluster,
+    """The per-(tenant, host) policy table is ported: both servers take
+    one, and refuse it beside the per-tenant ``policy_for=`` it replaces.
+    The sharded fleet serves under the table, and without a card the
+    default device raises."""
+    from repro_torch.serve import (GossipConfig, PolicyTable, ShardCluster,
                                    ShardedEnsembleServer)
-    with pytest.raises(NotImplementedError, match="policy_table"):
-        EnsembleServer(EnsembleRegistry(), policy_table=object(),
-                       device="cpu")
+    table = PolicyTable(BatchConfig(max_batch=4))
+    with pytest.raises(ValueError, match="policy_for"):
+        EnsembleServer(EnsembleRegistry(), policy_table=table,
+                       policy_for=lambda t: None, device="cpu")
+    assert EnsembleServer(EnsembleRegistry(), policy_table=table,
+                          device="cpu").cfg.max_batch == 4
     cluster = ShardCluster(2, GossipConfig(seed=0))
-    with pytest.raises(NotImplementedError, match="policy_table"):
-        ShardedEnsembleServer(cluster, policy_table=object(), device="cpu")
     rng = np.random.RandomState(0)
     p = np.zeros((3, 4), np.float32)
     p[:, 1] = rng.randn(3)
@@ -202,7 +205,11 @@ def test_unported_serving_paths_raise():
     cluster.publish_packed(TENANT, p, np.ones(3, np.float32))
     cluster.run_until_quiescent()
     server = ShardedEnsembleServer(cluster, BatchConfig(),
-                                   service_model=SERVICE, device="cpu")
+                                   service_model=SERVICE, device="cpu",
+                                   policy_table=table)
+    # the explicit cfg is the fleet default the table's layers stack onto
+    assert all(s.policy_table is not None and s.cfg.max_batch == 64
+               for s in server.servers.values())
     ok, out = server.submit(TENANT, rng.randn(4).astype(np.float32), 0.0)
     out += server.drain()
     assert ok and len(out) == 1 and out[0].snapshot_version == 1
