@@ -126,7 +126,24 @@ nonzero (there is no CPU fall-back):
    path (report equal, margins within rtol/atol 1e-5) and on the card
    with iot pinned to ``torch`` (the launches split by policy); and the
    host time the dispatcher adds to a ``stump_vote_batched`` call at
-   (1, 477, 1), timed in turns against the cuda backend's launch code.
+   (1, 477, 1), timed in turns against the cuda backend's launch code;
+14. the mesh-integrated federated boost (``core/fed_mesh.py``): the five
+   paper domains and mobile_x4 at their registered sizes, K = each one's
+   ``n_clients``, 80 rounds, buffer cap 8: each round's fits one
+   ``stump_scan_batched`` launch, each sync two ``stump_vote_batched``
+   launches, every choice ``cuda``, the summary beside the JAX package's
+   (``MESH_REFERENCE``); every scan bit-equal to the plain version on its
+   own inputs; each run replayed on the CPU in lockstep from the card's
+   states; each final ensemble published and 256 test requests answered
+   through ``BatchEvaluator`` on the card and on the CPU;
+15. LM training: ``launch/train.py``'s ``train_loop`` on qwen1.5-0.5b at
+   full width and depth (batch 4, seq 512, 10 steps, AdamW): the loss a
+   step, ms a step, peak memory, no ``flash_attention`` launch (attention
+   under autograd takes the chunked softmax); 10 steps on one batch, whose
+   loss must fall, and one step traced; one step at two layers of
+   full width on the card and on the CPU from the same weights (loss and
+   every gradient); a checkpoint at the reduced size written at step 3,
+   read back bit for bit in the JAX package's format, and resumed.
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
 path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
@@ -137,7 +154,9 @@ instructions (HGMMA, HMMA) of each flash kernel in the built library's SASS.
 Launch counts are zeroed just before phase 4 and read just after phase 5,
 and zeroed again just before each later path (7.2, 8, 9, 10, 11, 12, 13)
 and read just after it (the main path of phases 11 and 12 is their step
-1, of phase 13 its step 2, the run of ``serve_ensemble``).
+1, of phase 13 its step 2, the run of ``serve_ensemble``, of phase 14
+its step 1, the six training runs, of phase 15 its step 1, the
+full-width ``train_loop``).
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -730,6 +749,7 @@ def check_scan(gen) -> dict:
         got = ops.stump_scan(x, y, w, thr)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / (1.0 + want.abs())).max())
         nbytes = 4 * (N * F + 2 * N + F * T) + 4 * F * T
         # two f32 compares per (n, f, t), one f64 add per miss
         misses = int(((x[:, :, None] > thr[None]) != (y > 0)[:, None, None])
@@ -1029,6 +1049,7 @@ def check_generic_kernels():
         want = ref.ensemble_vote_batched_ref(m, alf)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / (1.0 + want.abs())).max())
         if not close(got, want, l1):
             raise AssertionError(f"ensemble_vote_batched {label}: max err "
                                  f"{err}")
@@ -1053,6 +1074,7 @@ def check_generic_kernels():
         want = ref.ensemble_vote_ref(m, alf)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / (1.0 + want.abs())).max())
         if not close(got, want, l1):
             raise AssertionError(f"ensemble_vote {label}: max err {err}")
         results.setdefault("ensemble_vote", {})[label] = dict(
@@ -1219,6 +1241,7 @@ def check_dist_update(gen) -> dict:
         got0, z0 = ops.dist_update(0.0, D, y, h)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / (1.0 + want.abs())).max())
         z_rel = float((z - wz).abs() / wz)
         a32 = torch.tensor(alpha, device="cuda")
         w_ulps = ulps(got, (D * torch.exp(-a32 * y * h)) / (z + 1e-30))
@@ -1914,6 +1937,7 @@ def check_scan_batched():
         want = ref.stump_scan_batched_ref(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / (1.0 + want.abs())).max())
         if not (err <= SCAN_TOL and torch.equal(got, want)):
             raise AssertionError(f"stump_scan_batched {label}: max err {err}, "
                                  f"not bit-equal")
@@ -3877,6 +3901,470 @@ def policy_path(serve_shapes, fleet_launches) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 14
+MESH_RUNS = ("edge_vision", "blockchain", "mobile", "iot", "healthcare",
+             "mobile_x4")
+MESH_CAP = 8
+MESH_REQUESTS = 256
+# the CPU replay of a card round against the card's: the vote's plain
+# version sums in another order, so a sum carries the rounding of its
+# partial sums, up to a few f32 ulps of l1, the sum of the summed terms'
+# magnitudes (as ``close`` allows).  D = D0*exp(-y*s) over a sync's l1 =
+# sum |alpha| of its gathered stumps: D within MESH_TOL * (1 + l1) of
+# itself; val_margin within MESH_TOL * (1 + the ensemble's sum |alpha|);
+# every other float within rtol/atol MESH_TOL
+MESH_TOL = 1e-5
+# The JAX package's runs of the same configurations, on a CPU (K
+# placeholder devices, an Auto-axes mesh):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/fed_mesh_reference.py
+# The port's own run may split from it at an exact stump tie (C4); its
+# summary is printed beside this one.  first_nonfinite_D: the reference's
+# foreign-learner update multiplies K*cap factors exp(-alpha*y*m) in f32,
+# which overflows at mobile_x4's 128 clients (ROADMAP C7); the port keeps
+# those semantics.
+MESH_REFERENCE = json.loads("""
+{"edge_vision": {"ens_count": 900, "syncs": 14, "interval_first": 2.0,
+"interval_last": 8.0, "val_err": 0.36000001430511475,
+"first_nonfinite_D": null}, "blockchain": {"ens_count": 608, "syncs": 13,
+"interval_first": 2.0, "interval_last": 8.0, "val_err": 0.20698924362659454,
+"first_nonfinite_D": null}, "mobile": {"ens_count": 2464, "syncs": 19,
+"interval_first": 2.0, "interval_last": 5.0, "val_err": 0.3582589328289032,
+"first_nonfinite_D": null}, "iot": {"ens_count": 1824, "syncs": 13,
+"interval_first": 2.0, "interval_last": 8.0, "val_err": 0.2866666615009308,
+"first_nonfinite_D": null}, "healthcare": {"ens_count": 468, "syncs": 16,
+"interval_first": 2.0, "interval_last": 8.0, "val_err": 0.37555554509162903,
+"first_nonfinite_D": null}, "mobile_x4": {"ens_count": 9344, "syncs": 13,
+"interval_first": 2.0, "interval_last": 8.0, "val_err": 0.2843191921710968,
+"first_nonfinite_D": 5}}
+""")
+MESH_INTS = ("buf_stamp", "buf_count", "ens_count", "counter", "last_sync",
+             "sync_count")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, a NaN matching a NaN in the same place (the kernel and
+    the plain version make NaNs with other payloads)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+def mesh_data(name: str, device):
+    """K and the (K, n, F)/(K, n) client shards and (K, nv, F)/(K, nv)
+    validation slices of a domain at its registered size, K its
+    ``n_clients``, each shard cut to the smallest client's rows (as the
+    JAX package's mesh test stacks them), on ``device``; and the test
+    set as numpy."""
+    from repro_torch.data import make_domain_data
+    from repro_torch.sim.scenarios import SCENARIOS
+    dom = SCENARIOS[name].domain
+    K = dom.n_clients
+    data = make_domain_data(dom, seed=0)
+    n = min(c[0].shape[0] for c in data["clients"])
+    x = np.stack([c[0][:n] for c in data["clients"]])
+    y = np.stack([c[1][:n] for c in data["clients"]])
+    xv, yv = data["val"]
+    nv = xv.shape[0] // K
+    arrays = (x, y, xv[:K * nv].reshape(K, nv, -1), yv[:K * nv].reshape(K, nv))
+    return (K, *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays), data["test"])
+
+
+def mesh_close(got: dict, want: dict, prev_count: int, label: str) -> int:
+    """A CPU replay of one round (``got``, numpy under the reference's
+    field names) from a state of ``prev_count`` learners against the
+    card's (``want``): integer fields equal, picks (feature, threshold,
+    polarity) equal, floats within MESH_TOL's rules, NaNs where the card
+    has them.  The global error may differ only where validation margins
+    within rounding of 0 flipped a prediction, and then the interval with
+    it.  Returns the flipped predictions and D's largest relative gap
+    over 1 + l1."""
+    alphas = np.abs(want["ens_alpha"].astype(np.float64))
+    l1_sync = float(alphas[prev_count:int(want["ens_count"])].sum())
+    l1_all = float(alphas[:int(want["ens_count"])].sum())
+    def close(f, rtol, atol):
+        g, w = torch.from_numpy(got[f]), torch.from_numpy(want[f])
+        if not torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True):
+            raise AssertionError(f"{label}: {f} off by "
+                                 f"{float((g - w).abs().nan_to_num().max())}")
+    for f in MESH_INTS:
+        if not np.array_equal(got[f], want[f]):
+            raise AssertionError(f"{label}: {f} {got[f]} != {want[f]}")
+    for f in ("buf_params", "ens_params"):
+        if not same_bits(torch.from_numpy(got[f][..., :3].copy()),
+                         torch.from_numpy(want[f][..., :3].copy())):
+            raise AssertionError(f"{label}: {f} picks differ")
+    close("D", MESH_TOL * (1.0 + l1_sync), 1e-30)
+    gd, wd = got["D"].astype(np.float64), want["D"].astype(np.float64)
+    ok = np.isfinite(wd) & (wd > 0)
+    d_gap = float(np.max(np.abs(gd[ok] - wd[ok]) / wd[ok], initial=0.0)) \
+        / (1.0 + l1_sync)
+    close("val_margin", MESH_TOL, MESH_TOL * (1.0 + l1_all))
+    for f in ("buf_params", "ens_params", "ens_alpha"):
+        close(f, MESH_TOL, MESH_TOL)
+    if got["prev_err"] == want["prev_err"]:
+        if got["interval"] != want["interval"]:
+            raise AssertionError(f"{label}: interval {got['interval']} != "
+                                 f"{want['interval']}")
+        return 0, d_gap
+    vg, vw = got["val_margin"], want["val_margin"]
+    flips = (vg > 0) != (vw > 0)
+    scale = MESH_TOL * (1.0 + l1_all)
+    if not flips.any() or (np.abs(vw[flips]) > scale).any():
+        raise AssertionError(f"{label}: prev_err {got['prev_err']} != "
+                             f"{want['prev_err']} without a margin at 0")
+    return int(flips.sum()), d_gap
+
+
+def mesh_path():
+    """Phase 14: the mesh-integrated federated boost on the card.  (1) The
+    five paper domains and mobile_x4 at their registered sizes, K = each
+    one's ``n_clients``, ``FedBoostConfig(n_clients=K)`` for its 80 rounds,
+    buffer cap 8, ``ens_cap = K * n_rounds``: every round's fits one
+    ``stump_scan_batched`` launch, every sync two ``stump_vote_batched``
+    launches (counts zeroed by the caller just before, read here just
+    after the last run), every dispatched choice ``cuda``.  (2) Every scan
+    of the runs bit-equal to the plain version on its own inputs.  (3)
+    Each run replayed on the CPU in lockstep: round r from the card's state
+    r-1 (``convert.fed_mesh_state_to_numpy`` and back).  (4) Each final
+    ensemble published into a registry and 256 requests from the domain's
+    test set answered through ``BatchEvaluator`` on the card and on the
+    CPU.  Returns the launches of (1)."""
+    from repro_torch.configs.paper_fedboost import FedBoostConfig
+    from repro_torch.convert import (fed_mesh_state_from_numpy,
+                                     fed_mesh_state_to_numpy)
+    from repro_torch.core import fed_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.models.weak import stump_thresholds
+    from repro_torch.serve import BatchEvaluator, EnsembleRegistry
+    from repro_torch.serve.batching import Request
+    smi = nvidia_smi()
+    scan = ops.stump_scan_batched
+    scans = []
+
+    def recorded(*args, **kw):
+        out = scan(*args, **kw)
+        scans.append((args, out))
+        return out
+    ops.stump_scan_batched = recorded
+    runs = {}
+    kernels = ("stump_scan_batched", "stump_vote_batched")
+    try:
+        for name in MESH_RUNS:
+            K, x, y, xv, yv, test = mesh_data(name, CARD)
+            cfg = FedBoostConfig(n_clients=K)
+            policy = KernelPolicy(env_var=None)
+            thr = stump_thresholds(x.reshape(-1, x.shape[-1]))
+            step = fed_mesh.make_fed_boost_step(cfg, thr, policy=policy)
+            s = fed_mesh.init_state(cfg, K, x.shape[1], xv.shape[1],
+                                    MESH_CAP, K * cfg.n_rounds, device=CARD)
+            before, first_scan = dict(ops.LAUNCHES), len(scans)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states = [s]
+            for _ in range(cfg.n_rounds):
+                s = step(s, x, y, xv, yv)
+                states.append(s)
+            torch.cuda.synchronize()
+            runs[name] = dict(
+                K=K, data=(x, y, xv, yv, test), thr=thr, cfg=cfg,
+                states=states, policy=policy,
+                wall_s=time.perf_counter() - t0,
+                scans=scans[first_scan:],
+                launches={k: ops.LAUNCHES[k] - before[k] for k in kernels})
+    finally:
+        ops.stump_scan_batched = scan
+    launches = dict(ops.LAUNCHES)
+
+    for name, r in runs.items():
+        s, L = r["states"][-1], r["launches"]
+        ints = [float(st.interval) for st in r["states"][1:]]
+        bad = next((i for i, st in enumerate(r["states"][1:])
+                    if not bool(torch.isfinite(st.D).all())), None)
+        mine = dict(ens_count=s.ens_count, syncs=s.sync_count,
+                    interval_first=ints[0], interval_last=ints[-1],
+                    val_err=float(s.prev_err), first_nonfinite_D=bad)
+        choices = sorted(set(r["policy"].choices.values()))
+        log(f"mesh 14.1 {name}: K={r['K']} n_local={r['data'][0].shape[1]} "
+            f"n_val_local={r['data'][2].shape[1]} rounds={s.counter} "
+            f"syncs={s.sync_count} ens_count={s.ens_count} interval "
+            f"{ints[0]} -> {ints[-1]} val_err={mine['val_err']:.6f} "
+            f"first_nonfinite_D={bad} wall_s={r['wall_s']:.4f} launches "
+            f"{L} choices {choices} | JAX package's: "
+            f"{MESH_REFERENCE[name]} | {smi}")
+        if L["stump_scan_batched"] != s.counter or \
+                L["stump_vote_batched"] != 2 * s.sync_count or \
+                len(r["scans"]) != s.counter:
+            raise AssertionError(f"mesh 14.1 {name}: launches {L} for "
+                                 f"{s.counter} rounds, {s.sync_count} syncs")
+        if choices != ["cuda"]:
+            raise AssertionError(f"mesh 14.1 {name}: choices {choices}")
+        if not math.isfinite(mine["val_err"]) or \
+                bad != MESH_REFERENCE[name]["first_nonfinite_D"]:
+            raise AssertionError(f"mesh 14.1 {name}: val_err "
+                                 f"{mine['val_err']}, first non-finite D "
+                                 f"at {bad}")
+
+    t0 = time.perf_counter()
+    n_scans = 0
+    for name, r in runs.items():
+        for args, got in r["scans"]:
+            want = ops.stump_scan_batched(*args, backend="torch",
+                                          policy=KernelPolicy(env_var=None))
+            if not same_bits(got, want):
+                raise AssertionError(f"mesh 14.2 {name}: a scan at "
+                                     f"{tuple(args[0].shape)} is not "
+                                     f"bit-equal to the plain version")
+            n_scans += 1
+    log(f"mesh 14.2: every scan of the six runs ({n_scans}) bit-equal to "
+        f"the plain version on its own inputs "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    for name, r in runs.items():
+        x, y, xv, yv, _ = (host(a) if isinstance(a, torch.Tensor) else a
+                           for a in r["data"])
+        step = fed_mesh.make_fed_boost_step(r["cfg"], host(r["thr"]))
+        card = [fed_mesh_state_to_numpy(st) for st in r["states"]]
+        flips, d_gap = 0, 0.0
+        for i in range(len(card) - 1):
+            got = step(fed_mesh_state_from_numpy(card[i]), x, y, xv, yv)
+            f, g = mesh_close(fed_mesh_state_to_numpy(got), card[i + 1],
+                              int(card[i]["ens_count"]),
+                              f"mesh 14.3 {name} round {i}")
+            flips, d_gap = flips + f, max(d_gap, g)
+        log(f"mesh 14.3 {name}: {len(card) - 1} rounds replayed on the CPU "
+            f"in lockstep from the card's states: integer fields and picks "
+            f"equal, D within {d_gap:.3g} * (1 + l1) of itself (tol "
+            f"{MESH_TOL}), other floats within tolerance; {flips} "
+            f"validation prediction(s) flipped at a margin within rounding "
+            f"of 0")
+    log(f"mesh 14.3: replays took {time.perf_counter() - t0:.1f} s")
+
+    registry = EnsembleRegistry()
+    for name, r in runs.items():
+        snap = fed_mesh.publish_snapshot(r["states"][-1], registry, name)
+        test_x = np.asarray(r["data"][4][0], np.float32)[:MESH_REQUESTS]
+        reqs = [Request(rid=i, tenant=name, x=test_x[i], t_submit=0.0)
+                for i in range(len(test_x))]
+        before = ops.LAUNCHES["stump_vote_batched"]
+        card = BatchEvaluator(registry, device=CARD).evaluate(reqs)
+        torch.cuda.synchronize()
+        votes = ops.LAUNCHES["stump_vote_batched"] - before
+        cpu = BatchEvaluator(registry, device="cpu").evaluate(reqs)
+        got = torch.tensor([c.margin for c in card], dtype=torch.float64)
+        want = torch.tensor([c.margin for c in cpu], dtype=torch.float64)
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / (1.0 + want.abs())).max())
+        if [c.snapshot_version for c in card] != [snap.version] * len(reqs) \
+                or not torch.allclose(got, want, rtol=MESH_TOL, atol=MESH_TOL):
+            raise AssertionError(f"mesh 14.4 {name}: margins off by {err}")
+        log(f"mesh 14.4 {name}: v{snap.version} of {len(snap.alphas)} "
+            f"learners, {len(reqs)} requests through BatchEvaluator "
+            f"({votes} vote launches), margins within {err:.3g} of the "
+            f"CPU's ({rel:.3g} of 1 + |margin|; tol rtol/atol {MESH_TOL})")
+    return {k: launches[k] for k in kernels}
+
+
+# ------------------------------------------------------------ phase 15
+TRAIN_ARCH = "qwen1.5-0.5b"        # repro.launch.train's default --arch
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 10, 3e-3
+TRAIN_LOCK_LAYERS, TRAIN_LOCK_SEQ = 2, 64
+# card against the CPU on one step's loss (f32 sums in other orders) and
+# each gradient, as a share of its leaf's largest magnitude (the same
+# rounding through the backward pass; tests/test_torch_lm.py holds a
+# reduced model to it on the card)
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL = 1e-4
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+
+
+def lm_train() -> dict:
+    """Phase 15: LM training on the card.  (1) ``train_loop`` on
+    qwen1.5-0.5b at full width and depth (``--preset full``), batch 4, seq
+    512, 10 steps, lr 3e-3: the loss a step (finite, near ln V), ms a
+    step, peak memory, the launches (``flash_attention`` must stay at 0:
+    attention under autograd takes the chunked softmax); then the same
+    train step 10 times on step 0's batch from the same init, whose loss
+    must fall, and one more step traced; (2) one step's loss and
+    gradients at two layers of full width (seq 64) on the card and on the
+    CPU from the same weights; (3) a checkpoint at the reduced size written at step 3 and
+    read back bit for bit in the JAX package's format, then resumed to
+    step 5.  Returns the launches of (1)."""
+    import dataclasses
+    import shutil
+    from repro_torch import checkpoint
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import MarkovTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import Model, attention
+    from repro_torch.optim import adamw, cosine_schedule
+    smi = nvidia_smi()
+    cfg = get_arch(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    ops.reset_launches()
+    routes = dict(attention.ROUTES)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        params, losses = train.train_loop(
+            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            lr=TRAIN_LR, log_every=1, device=CARD, step_s=step_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    grad_calls = attention.ROUTES["chunked_grad"] - routes["chunked_grad"]
+    n_params = sum(t.numel() for t in params.parameters())
+    log(f"train 15.1 {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params:,} params f32, "
+        f"AdamW; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps "
+        f"in {wall:.2f} s; launches {launches}; attention calls under "
+        f"autograd {grad_calls} (flash "
+        f"{attention.ROUTES['flash'] - routes['flash']}) | {smi}")
+    for i, (loss, s) in enumerate(zip(losses, step_s)):
+        log(f"train 15.1 step {i}: loss {loss:.6f} ms {1e3 * s:.1f}")
+    sec = statistics.median(step_s[1:])
+    log(f"train 15.1: median ms a step {1e3 * sec:.1f} (first "
+        f"{1e3 * step_s[0]:.1f}), tokens/s {TRAIN_BATCH * TRAIN_SEQ / sec:.0f}"
+        f", peak_mem_gb {peak / 1e9:.3f} | {smi}")
+    if sum(line.startswith("step ") for line in
+           out.getvalue().splitlines()) != TRAIN_STEPS:
+        raise AssertionError(f"train 15.1: log {out.getvalue()!r}")
+    if launches["flash_attention"] != 0 or grad_calls < 2 * cfg.n_layers:
+        raise AssertionError(f"train 15.1: flash launched "
+                             f"{launches['flash_attention']} times, "
+                             f"{grad_calls} attention calls under autograd")
+    # a fresh batch a step at a 151,936-token vocab: each transition of the
+    # Markov stream is seen about once, so 10 steps cannot learn it and the
+    # loss stays near ln V; it must stay finite and near it
+    if not all(abs(v - math.log(cfg.vocab_size)) < 1.0 for v in losses):
+        raise AssertionError(f"train 15.1: losses {losses}")
+    # the same train step learns: 10 steps on step 0's batch from the
+    # same init, with train_loop's optimizer and schedule
+    del params
+    model = Model(cfg, device=CARD)
+    params = model.init(torch.Generator(CARD).manual_seed(0))
+    params.requires_grad_(True)
+    b = next(MarkovTokens(cfg.vocab_size, seed=0).batches(
+        TRAIN_BATCH, TRAIN_SEQ, 1))
+    b = {k: torch.from_numpy(v).to(CARD) for k, v in b.items()}
+    opt = adamw(cosine_schedule(TRAIN_LR, 1, TRAIN_STEPS), b2=0.95,
+                weight_decay=0.01)
+    ost = opt.init(list(params.parameters()))
+    step = train.make_train_step(model, params, opt)
+    fixed = []
+    for i in range(TRAIN_STEPS):
+        loss, _, ost = step(b, i, ost)
+        fixed.append(float(loss))
+    log(f"train 15.1b: {TRAIN_STEPS} steps on step 0's batch from the "
+        f"same init: losses "
+        f"{[round(v, 4) for v in fixed]}; flash launches "
+        f"{ops.LAUNCHES['flash_attention']}")
+    if not fixed[-1] < fixed[0] or ops.LAUNCHES["flash_attention"]:
+        raise AssertionError(f"train 15.1b: losses {fixed}")
+    # one more step traced, for the card's busy share and time by kernel
+    with cuda_profile() as prof:
+        t0 = time.perf_counter()
+        loss, _, ost = step(b, TRAIN_STEPS, ost)
+        float(loss)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = device_us_by_name(prof)
+    busy_ms = sum(by_name.values()) / 1e3
+    n_ops = sum(evt.device_type == torch.autograd.DeviceType.CUDA
+                for evt in prof.events())
+    log(f"profile train step: wall_ms={wall_ms:.1f} device_busy_ms="
+        f"{busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.4f} "
+        f"device_ops={n_ops} | {smi}")
+    for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"profile train step:   {us / 1e3:9.3f} ms  {key}")
+    del params, ost, step
+
+    # (2) one step, card against the CPU, at two layers of full width
+    t0 = time.perf_counter()
+    small = dataclasses.replace(cfg, n_layers=TRAIN_LOCK_LAYERS)
+    model = Model(small, device=CARD)
+    params = model.init(torch.Generator(CARD).manual_seed(0))
+    cpu = Model(small, device="cpu")
+    cpu_params = cpu.init()
+    cpu_params.load_state_dict(params.state_dict())
+    b = next(MarkovTokens(small.vocab_size, seed=0).batches(
+        TRAIN_BATCH, TRAIN_LOCK_SEQ, 1))
+    res = []
+    for m, p in ((model, params), (cpu, cpu_params)):
+        p.requires_grad_(True)
+        before = ops.LAUNCHES["flash_attention"]
+        loss, _ = m.loss(p, {k: torch.from_numpy(v).to(m.device)
+                             for k, v in b.items()})
+        grads = torch.autograd.grad(loss, list(p.parameters()))
+        if ops.LAUNCHES["flash_attention"] != before:
+            raise AssertionError("train 15.2: flash launched under autograd")
+        res.append((float(loss.detach()), [host(g) for g in grads]))
+    (loss, grads), (want_loss, want) = res
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    worst = max(float((g - w).abs().max()) / float(w.abs().max())
+                for g, w in zip(grads, want))
+    log(f"train 15.2 {small.name} {TRAIN_LOCK_LAYERS} layers, seq "
+        f"{TRAIN_LOCK_SEQ}: loss {loss:.6f} on the card, {want_loss:.6f} on "
+        f"the CPU (rel {loss_rel:.3g}, tol {TRAIN_LOSS_REL}); {len(grads)} "
+        f"gradients within {worst:.3g} of each leaf's largest (tol "
+        f"{TRAIN_GRAD_REL}) ({time.perf_counter() - t0:.1f} s) | {smi}")
+    if loss_rel > TRAIN_LOSS_REL or worst > TRAIN_GRAD_REL:
+        raise AssertionError("train 15.2: card and CPU differ")
+    del params, cpu_params, grads, want
+
+    # (3) a checkpoint at the reduced size: written at step 3, read back
+    t0 = time.perf_counter()
+    rcfg = reduced(cfg)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    kw = dict(batch=TRAIN_BATCH, seq=64, lr=TRAIN_LR, device=CARD,
+              ckpt_dir=str(TRAIN_CKPT_DIR))
+    with contextlib.redirect_stdout(io.StringIO()):
+        params, _ = train.train_loop(rcfg, steps=3, **kw)
+    fresh = Model(rcfg, device=CARD).init(torch.Generator(CARD).manual_seed(9))
+    opt = adamw(TRAIN_LR)
+    ost = opt.init(list(fresh.parameters()))
+    like = train.checkpoint_tree(fresh, ost, rcfg)
+    tree, step, _ = checkpoint.restore(str(TRAIN_CKPT_DIR), like)
+    ost = train.load_checkpoint_tree(tree, fresh, ost, rcfg)
+    path = TRAIN_CKPT_DIR / "step_00000003"
+    manifest = json.loads((path / "manifest.json").read_text())
+    saved = np.load(path / "arrays.npz")
+    back = checkpoint.checkpoint._flatten_with_paths(
+        train.checkpoint_tree(fresh, ost, rcfg))
+    if step != 3 or manifest["keys"] != sorted(back) or any(
+            manifest["shapes"][k] != list(v.shape) or
+            manifest["dtypes"][k] != "float32" for k, v in back.items()):
+        raise AssertionError(f"train 15.3: manifest {manifest['keys'][:4]}")
+    for k in ("0/embed", "0/blocks/0/attn/wq", "1/m/blocks/0/mlp/w_down",
+              "1/v/final_norm"):
+        if k not in back:
+            raise AssertionError(f"train 15.3: no leaf {k}")
+    for k, v in back.items():
+        if not np.array_equal(host(v).numpy(), saved[k]):
+            raise AssertionError(f"train 15.3: {k} not read back bit for "
+                                 f"bit")
+    for (n, p), q in zip(params.named_parameters(), fresh.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"train 15.3: {n} differs from the trained "
+                                 f"param")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        _, resumed = train.train_loop(rcfg, steps=5, **kw)
+    if "resumed from step 3" not in out.getvalue() or len(resumed) != 2 \
+            or checkpoint.latest_step(str(TRAIN_CKPT_DIR)) != 5:
+        raise AssertionError(f"train 15.3: resume {out.getvalue()!r}")
+    log(f"train 15.3 {rcfg.name}: checkpoint at step 3, {len(back)} leaves "
+        f"in the JAX package's stacked layout, read back bit for bit into "
+        f"params and AdamW moments; resumed to step 5 (losses "
+        f"{[round(v, 4) for v in resumed]}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4005,6 +4493,24 @@ def main() -> int:
         f"in all of phase 13: {dict(ops.LAUNCHES)}; phase 13 took "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # the mesh-integrated federated boost: counts zeroed just before
+    # phase 14, read after its training runs (step 1)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    mesh_launches = mesh_path()
+    torch.cuda.synchronize()
+    log(f"launches on the mesh path (step 1): {mesh_launches}; in all of "
+        f"phase 14: {dict(ops.LAUNCHES)}; phase 14 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # LM training: counts zeroed just before the full-width train_loop
+    # (step 1) and read just after it
+    t0 = time.perf_counter()
+    train_launches = lm_train()
+    torch.cuda.synchronize()
+    log(f"launches on the LM train path (step 1): {train_launches}; "
+        f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "kernel_ms", "shape")
@@ -4022,6 +4528,10 @@ def main() -> int:
                if name in ("stump_scan", "stump_vote_batched") else {}),
             **({"policy_launches": policy_launches[name]}
                if name in ("stump_scan", *STUMP_KERNELS) else {}),
+            **({"mesh_launches": mesh_launches[name]}
+               if name in mesh_launches else {}),
+            **({"train_launches": train_launches[name]}
+               if name == "flash_attention" else {}),
             **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()
                if label != "main"}))

@@ -3,7 +3,8 @@ from numpy.
 
 Both packages compute on the same inputs when each is handed the same
 numpy arrays: the JAX package's learners, snapshots, a cluster's registry
-windows, a chain cluster's state, domain data and LM params turn into
+windows, a chain cluster's state, domain data, a mesh trainer's state and
+LM params turn into
 numpy with ``np.asarray`` (``jax.tree.map`` for a params pytree;
 :func:`cluster_windows` and :func:`chain_to_numpy` for a cluster), and
 these functions turn numpy into this package's equivalents.
@@ -299,6 +300,52 @@ def domain_data_from_numpy(clients: Sequence, val, test) -> Dict:
             "val": pair(*val), "test": pair(*test)}
 
 
+def _lm_path(name: str, p: int):
+    """A port LM param's name -> (its path in the JAX package's params
+    pytree, its period): layer i is period ``i // p`` of slot ``i % p``;
+    a param outside the blocks has no period."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return tuple(parts), None
+    i = int(parts[1])
+    return ("blocks", i % p) + tuple(parts[2:]), i // p
+
+
+def lm_leaf(tree: Mapping, name: str, cfg: ArchConfig):
+    """The value for the port's LM param ``name`` in the JAX package's
+    stacked params pytree (one period of its slot's stacked leaf)."""
+    path, period = _lm_path(name, cfg.pattern_period)
+    for key in path:
+        tree = tree[key]
+    return tree if period is None else tree[period]
+
+
+def lm_tree(named: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict:
+    """The JAX package's stacked LM params pytree from tensors keyed by the
+    port's param names (``dict(params.named_parameters())``, or an
+    optimizer moment keyed alike): ``embed``, ``final_norm``, ``lm_head``
+    where untied, and ``blocks``, a tuple of one dict a pattern slot whose
+    leaves stack the slot's layers over periods."""
+    p = cfg.pattern_period
+    tree: Dict = {}
+    stacks: Dict = {}
+    for name, t in named.items():
+        path, period = _lm_path(name, p)
+        if period is None:
+            tree[path[0]] = t
+        else:
+            stacks.setdefault(path, []).append((period, t))
+    slots: Dict = {}
+    for path, ts in stacks.items():
+        node = slots.setdefault(path[1], {})
+        for key in path[2:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack([t for _, t in sorted(
+            ts, key=lambda pt: pt[0])])
+    tree["blocks"] = tuple(slots[s] for s in range(p))
+    return tree
+
+
 def lm_params_from_numpy(params: Mapping, cfg: ArchConfig, device="cpu"):
     """The port's :class:`~repro_torch.models.transformer.Transformer` from
     the JAX package's LM params pytree as numpy: ``embed``,
@@ -308,26 +355,55 @@ def lm_params_from_numpy(params: Mapping, cfg: ArchConfig, device="cpu"):
     from repro_torch.models.transformer import Transformer
     dev = resolve_device(device)
     model = Transformer(cfg, gen=None, device=dev)
-    p = cfg.pattern_period
-
-    def put(dst: torch.Tensor, src) -> None:
-        src = np.asarray(src)
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"param of shape {src.shape} for "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(np.array(src, copy=True)))
-
     with torch.no_grad():
-        put(model.embed, params["embed"])
-        put(model.final_norm, params["final_norm"])
-        if model.lm_head is not None:
-            put(model.lm_head, params["lm_head"])
-        for i, block in enumerate(model.blocks):
-            src = params["blocks"][i % p]
-            put(block.norm1, src["norm1"][i // p])
-            for name, t in block.attn.named_parameters():
-                put(t, src["attn"][name][i // p])
-            put(block.norm2, src["norm2"][i // p])
-            for name, t in block.mlp.items():
-                put(t, src["mlp"][name][i // p])
+        for name, dst in model.named_parameters():
+            src = np.asarray(lm_leaf(params, name, cfg))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"param {name} of shape {src.shape} for "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src, copy=True)))
     return model
+
+
+FED_MESH_HOST_INTS = ("ens_count", "counter", "last_sync", "sync_count")
+FED_MESH_HOST_F32 = ("interval", "prev_err")
+
+
+def fed_mesh_state_from_numpy(state: Mapping, device="cpu", key: int = 0):
+    """The port's :class:`~repro_torch.core.fed_mesh.FedMeshState` from a
+    mesh trainer's state as numpy, keyed by the reference's field names
+    (``{k: np.asarray(v) for k, v in state._asdict().items()}``; its
+    ``key`` is not read: the step draws nothing).  The client-split and
+    ensemble leaves go to ``device`` with their dtypes, the round counters
+    become host ints and the interval and previous error f32 scalar
+    tensors on the host."""
+    from repro_torch.core.fed_mesh import FedMeshState
+    dev = resolve_device(device)
+    fields = {}
+    for name in FedMeshState._fields:
+        if name == "key":
+            fields[name] = int(key)
+        elif name in FED_MESH_HOST_INTS:
+            fields[name] = int(np.asarray(state[name]))
+        elif name in FED_MESH_HOST_F32:
+            fields[name] = torch.tensor(np.float32(state[name]), dtype=F32)
+        else:
+            a = np.asarray(state[name])
+            fields[name] = torch.from_numpy(np.array(a, copy=True)).to(dev)
+    return FedMeshState(**fields)
+
+
+def fed_mesh_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """A :class:`~repro_torch.core.fed_mesh.FedMeshState` as numpy under the
+    reference's field names (``key`` left out): the counters as int32 and
+    the interval and previous error as f32 scalars, as the reference holds
+    them, every other leaf with its own dtype."""
+    out = {}
+    for name, v in state._asdict().items():
+        if name == "key":
+            continue
+        if name in FED_MESH_HOST_INTS:
+            out[name] = np.asarray(v, np.int32)
+        else:
+            out[name] = v.detach().cpu().numpy()
+    return out

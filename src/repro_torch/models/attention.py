@@ -8,13 +8,20 @@ The functions keep the JAX package's names and take the layer's
 :func:`repro_torch.kernels.ops.flash_attention`) wherever the layer
 computes exactly what the kernel computes: causal, no sliding window
 (``window == 0``), no logit softcap (``cfg.attn_softcap == 0``), scale
-1/sqrt(hd), and positions ``arange(T)`` (``positions=None``).  The
-choice follows from the layer's config alone.  Every other layer (gemma2's
-local and softcapped layers, explicit positions) runs
-:func:`_sdpa_chunked`, the q-chunked plain softmax that the JAX package
-runs everywhere.  Both give the same function up to rounding.  The
-reference's docstring names an ``impl="pallas"`` switch for this that its
-code never had.
+1/sqrt(hd), and positions ``arange(T)`` (``positions=None``), and
+autograd does not record it.  Every other layer (gemma2's local and
+softcapped layers, explicit positions) runs :func:`_sdpa_chunked`, the
+q-chunked plain softmax that the JAX package runs everywhere.  Both give
+the same function up to rounding.  The reference's docstring names an
+``impl="pallas"`` switch for this that its code never had.
+
+The kernel has no backward (nor has the JAX package's), and it writes its
+result through raw pointers, so a gradient through it would be lost
+without an error.  Where grad mode is on and q, k or v requires grad (a
+training step), the layer runs :func:`_sdpa_chunked`, which is what the
+reference differentiates.  The choice is made from the grad mode before
+any launch, never after a kernel fails, and each call counts its route in
+``ROUTES``.
 
 Decode (:func:`attn_decode`) is a plain product over the cache, as in the
 reference.  It writes the new key and value into the cache in place (the
@@ -37,6 +44,10 @@ from repro_torch.models.layers import apply_rope, dense_init, softcap
 F32 = torch.float32
 BF16 = torch.bfloat16
 NEG_INF = -1e30
+# full-sequence attention calls by route: the flash kernel, the chunked
+# softmax for a layer the kernel does not compute, and the chunked softmax
+# because autograd records the call
+ROUTES: Dict[str, int] = {"flash": 0, "chunked": 0, "chunked_grad": 0}
 
 
 class Attention(nn.Module):
@@ -139,9 +150,18 @@ def _flash_applies(cfg: ArchConfig, window: int, positions) -> bool:
     return window == 0 and cfg.attn_softcap == 0 and positions is None
 
 
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _attend(q, k, v, cfg: ArchConfig, positions, window: int, block_q: int):
     if _flash_applies(cfg, window, positions):
-        return _flash(q, k, v)
+        if not _records_grad(q, k, v):
+            ROUTES["flash"] += 1
+            return _flash(q, k, v)
+        ROUTES["chunked_grad"] += 1
+    else:
+        ROUTES["chunked"] += 1
     positions = _positions(positions, q.shape[1], q.device)
     return _sdpa_chunked(q, k, v, positions, positions, causal=True,
                          window=window, attn_cap=cfg.attn_softcap,

@@ -123,3 +123,19 @@ def lm_head_apply(table_or_w: torch.Tensor, x: torch.Tensor, tied: bool,
                   logit_cap: float = 0.0) -> torch.Tensor:
     logits = x @ table_or_w.T if tied else x @ table_or_w
     return softcap(logits.to(F32), logit_cap)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_true: int) -> torch.Tensor:
+    """Mean token cross-entropy in f32; positions >= vocab_true (padding
+    vocab) masked with -1e30 before the logsumexp, as the reference adds
+    it."""
+    logits = logits.to(F32)
+    vpad = logits.shape[-1]
+    if vpad > vocab_true:
+        neg = torch.zeros((vpad,), dtype=F32, device=logits.device)
+        neg[vocab_true:] = -1e30
+        logits = logits + neg
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -1,6 +1,6 @@
 """Public model API: one entry point per architecture family.
 
-``Model`` wraps init / prefill / decode behind the JAX package's
+``Model`` wraps init / loss / prefill / decode behind the JAX package's
 interface, so a launcher does not branch on architecture family.  A model
 runs on the card unless it is built with ``device="cpu"``; asking for the
 card where there is none raises.  Decoder-only stacks are ported; an
@@ -38,6 +38,13 @@ class Model:
         """Params drawn from ``gen`` (a generator on the model's device), or
         left uninitialized for weights that are loaded next."""
         return transformer.init_params(gen, self.cfg, dtype, self.device)
+
+    # --------------------------------------------------------------- loss
+    def loss(self, params, batch: Dict[str, torch.Tensor], *,
+             remat: bool = True):
+        """(loss, {"ce", "aux"}); gradients flow where ``params`` require
+        them."""
+        return transformer.loss_fn(params, batch, self.cfg, remat=remat)
 
     # ------------------------------------------------------------ serving
     def prefill(self, params, batch: Dict[str, torch.Tensor],

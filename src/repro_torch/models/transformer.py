@@ -5,10 +5,17 @@ The JAX package stacks each pattern slot's params over a leading
 ``nn.ModuleList`` of one :class:`Block` per layer, run in layer order, so
 layer i is period ``i // p``, slot ``i % p`` for pattern period p
 (:func:`repro_torch.convert.lm_params_from_numpy` splits the reference's
-stacked params in that order).  Three entry points, as there: ``forward``
-(full logits, no remat), ``prefill`` (last-token logits + populated
-caches) and ``decode_step`` (one token against the caches).  Caches are a
-list of per-layer dicts, in layer order.
+stacked params in that order).  Four entry points, as there: ``forward``
+(full logits; with ``remat`` each pattern period's activations are
+recomputed in the backward pass, as the reference's
+``jax.checkpoint(period_body)``), ``loss_fn`` (the training loss),
+``prefill`` (last-token logits + populated caches) and ``decode_step``
+(one token against the caches).  Caches are a list of per-layer dicts, in
+layer order.
+
+The params are built with ``requires_grad=False``, for serving; training
+switches them on (``Transformer.requires_grad_(True)``, as
+``launch/train.py`` does).
 
 Attention mixers and dense MLPs are ported.  A Mamba mixer or an MoE MLP
 raises :class:`NotImplementedError` when the stack is built (ROADMAP.md
@@ -21,13 +28,14 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (
     ArchConfig, ATTN, ATTN_LOCAL, MLP_MOE)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (
-    dense_init, embed_apply, embed_init, lm_head_apply, mlp_apply, mlp_init,
-    rms_norm, rms_norm_init)
+    cross_entropy, dense_init, embed_apply, embed_init, lm_head_apply,
+    mlp_apply, mlp_init, rms_norm, rms_norm_init)
 
 F32 = torch.float32
 Cache = Dict[str, torch.Tensor]
@@ -120,17 +128,47 @@ def _head(params: Transformer, x: torch.Tensor, cfg: ArchConfig):
     return lm_head_apply(head, x, cfg.tie_embeddings, cfg.logit_softcap)
 
 
-def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  tokens: (B,T) -> (logits (B,T,Vpad) f32,
-    aux); aux is 0 (it counts MoE load balance, which is not ported)."""
-    x = embed_apply(params.embed, tokens)
-    for lp in params.blocks:
+def _period(blocks, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """One pattern period: its p layers in order."""
+    for lp in blocks:
         window = cfg.sliding_window if lp.mixer == ATTN_LOCAL else 0
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
         x = x + attn_mod.attn_apply(lp.attn, h, cfg, window=window)
         x = _mlp_half(lp, x, cfg)
+    return x
+
+
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  tokens: (B,T) -> (logits (B,T,Vpad) f32,
+    aux); aux is 0 (it counts MoE load balance, which is not ported).
+
+    With ``remat``, and only where autograd records (a forward under
+    ``torch.no_grad`` has nothing to recompute), each pattern period runs
+    under ``torch.utils.checkpoint``: its activations are dropped and
+    recomputed in the backward pass, as the reference's
+    ``jax.checkpoint(period_body)`` does."""
+    x = embed_apply(params.embed, tokens)
+    p = cfg.pattern_period
+    blocks = list(params.blocks)
+    remat = remat and torch.is_grad_enabled()
+    for i in range(0, len(blocks), p):
+        period = blocks[i:i + p]
+        if remat:
+            x = checkpoint(_period, period, cfg, x, use_reentrant=False)
+        else:
+            x = _period(period, cfg, x)
     return _head(params, x, cfg), torch.zeros((), dtype=F32, device=x.device)
+
+
+def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: ArchConfig, *, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(ce + aux, {"ce", "aux"}) on a batch of ``tokens`` and ``labels``
+    (B,T)."""
+    logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -133,8 +133,8 @@ def fit_stump_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     launch.
 
     x: (B,N,F); y, w: (B,N); thresholds: (B,F,T).  Returns
-    {"feature", "threshold", "polarity"} tensors of shape (B,), each slot
-    picked by :func:`_pick_stump`'s rule.  ``w`` rows need not be
+    {"feature", "threshold", "polarity", "eps"} tensors of shape (B,),
+    each slot picked by :func:`_pick_stump`'s rule.  ``w`` rows need not be
     normalized (the argmin is scale-invariant); the convention is to pass
     D_t rows directly.  ``policy`` is :func:`fit_stump`'s.
     """
@@ -147,18 +147,21 @@ def _pick_stump_batched(err_pos: torch.Tensor, thresholds: torch.Tensor
     """:func:`_pick_stump` row by row: err_pos (B,F,T) -> per slot the
     first least cell of each polarity (row-major over (F,T)), polarity +1
     where the two are equal.  ``torch.argmin`` returns the first index of a
-    minimum on every device."""
+    minimum on every device.  ``eps`` is the chosen polarity's error in
+    f32 (the mesh trainer's local alpha reads it)."""
     B, F, T = err_pos.shape
     e_pos = err_pos.reshape(B, F * T)
     e_neg = 1.0 - e_pos
     ip = torch.argmin(e_pos, dim=1, keepdim=True)
     ineg = torch.argmin(e_neg, dim=1, keepdim=True)
-    take_pos = e_pos.gather(1, ip) <= e_neg.gather(1, ineg)
+    best_pos, best_neg = e_pos.gather(1, ip), e_neg.gather(1, ineg)
+    take_pos = best_pos <= best_neg
     cell = torch.where(take_pos, ip, ineg)
     thr = thresholds.reshape(B, F * T).gather(1, cell)[:, 0]
     pol = torch.where(take_pos[:, 0], 1.0, -1.0).to(F32)
     return {"feature": (cell[:, 0] // T).to(torch.int32), "threshold": thr,
-            "polarity": pol}
+            "polarity": pol,
+            "eps": torch.where(take_pos, best_pos, best_neg)[:, 0]}
 
 
 def stump_thresholds_batched(x: torch.Tensor, n_valid: torch.Tensor,

@@ -40,7 +40,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.chain.cluster", "repro_torch.launch.obs_report",
             "repro_torch.core.controllers", "repro_torch.kernels.dispatch",
             "repro_torch.serve.policy",
-            "repro_torch.launch.serve_ensemble"} <= set(mods)
+            "repro_torch.launch.serve_ensemble",
+            "repro_torch.core.fed_mesh", "repro_torch.optim",
+            "repro_torch.checkpoint", "repro_torch.data.tokens",
+            "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -76,7 +80,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core import FederatedBoostEngine
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch import serve, serve_ensemble
+    from repro_torch.core import fed_mesh
+    from repro_torch.data.pipeline import place
+    from repro_torch.launch import serve, serve_ensemble, train
     from repro_torch.models import Model
     from repro_torch.serve import (BatchEvaluator, EnsembleRegistry,
                                    ShardCluster, ShardedEnsembleServer)
@@ -92,6 +98,8 @@ def test_entry_points_default_to_the_card():
         assert BatchEvaluator(EnsembleRegistry()).device.type == "cuda"
         assert ShardedEnsembleServer(ShardCluster(2)).device.type == "cuda"
         assert Model(lm).device.type == "cuda"
+        assert fed_mesh.init_state(cfg, 1, 8, 8, 2, 4).D.device.type == \
+            "cuda"
         return
     with pytest.raises(RuntimeError, match="cuda"):
         FederatedBoostEngine(cfg, data, "baseline")
@@ -109,6 +117,12 @@ def test_entry_points_default_to_the_card():
         serve.main(["--tokens", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve_ensemble.main(["--domains", "iot", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        fed_mesh.init_state(cfg, 1, 8, 8, 2, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        place({"tokens": np.zeros((1, 2), np.int32)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--steps", "1"])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

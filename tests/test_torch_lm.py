@@ -443,6 +443,39 @@ def test_prefill_runs_the_kernel_exactly_on_full_causal_layers(
     assert ops.LAUNCHES["flash_attention"] == before
 
 
+@pytest.mark.parametrize("remat", [True, False])
+def test_grad_mode_attention_never_calls_the_flash_kernel(monkeypatch, remat):
+    """A training step's full causal layers take the chunked softmax (the
+    kernel has no backward); the same layers under no_grad take the
+    kernel."""
+    cfg = dataclasses.replace(reduced(get_arch("qwen1.5-0.5b")), n_layers=4)
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    flash = ops.flash_attention
+
+    def refused(*a, **k):
+        raise AssertionError("ops.flash_attention called in grad mode")
+    monkeypatch.setattr(ops, "flash_attention", refused)
+    before = dict(attention.ROUTES)
+    params.requires_grad_(True)
+    loss, _ = transformer.loss_fn(params, batch, cfg, remat=remat)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    assert all(torch.isfinite(g).all() for g in grads)
+    wq = [g for (n, _), g in zip(params.named_parameters(), grads)
+          if n.endswith("attn.wq")]
+    assert len(wq) == 4 and all(float(g.abs().max()) > 0 for g in wq)
+    got = {k: attention.ROUTES[k] - before[k] for k in before}
+    # remat runs each period's forward again in the backward pass
+    assert got == {"flash": 0, "chunked": 0,
+                   "chunked_grad": 8 if remat else 4}
+    monkeypatch.setattr(ops, "flash_attention", flash)
+    with torch.no_grad():
+        transformer.prefill(params, toks, cfg, 16)
+    assert attention.ROUTES["flash"] - before["flash"] == 4
+
+
 @pytest.mark.parametrize("arch,match", [
     ("mamba2-1.3b", "mamba"), ("qwen3-moe-30b-a3b", "moe"),
     ("jamba-1.5-large-398b", "mamba"), ("whisper-base", "encdec")])
@@ -501,3 +534,37 @@ def test_prefill_on_card_launches_once_per_full_layer_and_matches_cpu(arch):
         want, _ = cpu.prefill(cpu_params, {"tokens": toks.cpu()},
                               cache_seq=88)
     _logits_close(got.cpu(), want.numpy(), LOGIT_REL)
+
+
+@pytest.mark.cuda
+def test_training_step_gradients_on_card_match_cpu():
+    """One training step's loss and gradients on the card against the
+    CPU's, on the same weights: the flash kernel is not launched (it has
+    no backward), and each gradient is within ``GRAD_REL`` of its leaf's
+    largest magnitude (f32 products in two orders, through the backward
+    pass)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    GRAD_REL = 1e-4
+    cfg = dataclasses.replace(reduced(get_arch("qwen1.5-0.5b")), n_layers=4)
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu_params = cpu.init()
+    cpu_params.load_state_dict(params.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 81),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for m, p in ((model, params), (cpu, cpu_params)):
+        p.requires_grad_(True)
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        before = ops.LAUNCHES["flash_attention"]
+        loss, _ = m.loss(p, b)
+        grads = torch.autograd.grad(loss, list(p.parameters()))
+        assert ops.LAUNCHES["flash_attention"] == before
+        out.append((float(loss), [g.cpu() for g in grads]))
+    (loss, grads), (want_loss, want) = out
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for g, w in zip(grads, want):
+        assert float((g - w).abs().max()) <= GRAD_REL * float(w.abs().max())
