@@ -143,7 +143,26 @@ nonzero (there is no CPU fall-back):
    loss must fall, and one step traced; one step at two layers of
    full width on the card and on the CPU from the same weights (loss and
    every gradient); a checkpoint at the reduced size written at step 3,
-   read back bit for bit in the JAX package's format, and resumed.
+   read back bit for bit in the JAX package's format, and resumed;
+16. the MoE, SSM, hybrid and encoder-decoder LM families in f32 (TF32
+   off), each through ``generate`` (batch 4, a 512-token prompt, 32
+   greedy tokens; whisper a 32-token prompt over seeded frames): the
+   flash launches of one prefill (8 / 0 / 1 / 12), prefill ms, decode ms
+   a token, tokens/s and peak memory, and a CPU replay in lockstep
+   (logits, greedy tokens, and every MoE layer handed the card's top-k
+   picks, the CPU's own picks tying them): 16.1 qwen3-moe-30b-a3b at full
+   width, 8 of its 48 layers, with the tokens dropped at capacity per
+   layer, replayed at 2 layers of the same weights; 16.2 mamba2-1.3b at
+   full size, replayed at 2 layers, and each layer's prefill(T + 1)
+   against prefill(T) plus one decode step in lockstep; 16.3 Jamba at
+   reduced width (8 layers, d_model 1024, 16 experts: one whole period);
+   16.4 whisper-base at full size, with the encoder's full-mode
+   ``flash_attention`` held against its plain version at (4, 8, 1500,
+   64); 16.5 ``train_loop`` with AdamW, 5 steps each, on qwen3-moe (2
+   layers, 2 x 256), mamba2-1.3b (8 layers, 4 x 512) and whisper-base (4
+   x 256): ms a step, tokens/s, peak memory, the aux term in the MoE
+   loss, no flash launch, and one step's gradients at 2 layers against
+   the CPU's.
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
 path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
@@ -156,7 +175,8 @@ and zeroed again just before each later path (7.2, 8, 9, 10, 11, 12, 13)
 and read just after it (the main path of phases 11 and 12 is their step
 1, of phase 13 its step 2, the run of ``serve_ensemble``, of phase 14
 its step 1, the six training runs, of phase 15 its step 1, the
-full-width ``train_loop``).
+full-width ``train_loop``, of phase 16 each family's first ``generate``
+and its three training runs together).
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1338,78 +1358,83 @@ FLASH_CASES = (  # label: (B, H, T, d, causal, dtype)
 )
 
 
-def check_flash_attention():
-    """Phase 3 for ``flash_attention``: the kernel against its plain version
-    on the card at the LM path's prefill shape and the other cases of
-    ``FLASH_CASES``, each result also bit-equal to a second call's, with
-    ``library_ms`` the time of ``scaled_dot_product_attention`` on the
-    same inputs (never called by the port) and ``library_kernel_ms`` its
-    device time.  The bound counts q, k, v read
-    and out written once, and the product work these inputs need: 2 BH T^2 d
-    under causality (half of QK^T and of PV), 4 BH T^2 d without, at the
-    bf16 tensor-core rate for bf16 inputs and, for f32 ones, as the
-    cheapest route to an f32-accurate result on this card: three TF32
-    products for each (split TF32) at the TF32 tensor-core rate."""
+def flash_case(label, B, H, T, d, causal, dtype, gen) -> dict:
+    """One case of ``flash_attention`` on the card: the kernel against its
+    plain version on the same inputs, bit-equal to a second call, with
+    CUDA-event and device times, the plain version's time, the bound and
+    ``scaled_dot_product_attention``'s event and device times (never
+    called by the port).  The bound counts q, k, v read and out written
+    once, and the product work these inputs need: 2 BH T^2 d under
+    causality (half of QK^T and of PV), 4 BH T^2 d without, at the bf16
+    tensor-core rate for bf16 inputs and, for f32 ones, as the cheapest
+    route to an f32-accurate result on this card: three TF32 products for
+    each (split TF32) at the TF32 tensor-core rate."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from repro_torch.kernels import ops, ref
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    results = {}
-    for label, (B, H, T, d, causal, dtype) in FLASH_CASES:
-        if label == "strided":
-            q, k, v = (torch.randn((B, T, H, d), generator=gen, device="cuda")
-                       .to(dtype).transpose(1, 2) for _ in range(3))
-            buf = torch.empty((B, T, H, d), dtype=dtype, device="cuda")
+    if label == "strided":
+        q, k, v = (torch.randn((B, T, H, d), generator=gen, device="cuda")
+                   .to(dtype).transpose(1, 2) for _ in range(3))
+        buf = torch.empty((B, T, H, d), dtype=dtype, device="cuda")
 
-            def call():
-                return ops.flash_attention(q, k, v, causal=causal,
-                                           out=buf.transpose(1, 2))
-        else:
-            q, k, v = (torch.randn((B, H, T, d), generator=gen,
-                                   device="cuda").to(dtype)
-                       for _ in range(3))
+        def call():
+            return ops.flash_attention(q, k, v, causal=causal,
+                                       out=buf.transpose(1, 2))
+    else:
+        q, k, v = (torch.randn((B, H, T, d), generator=gen,
+                               device="cuda").to(dtype)
+                   for _ in range(3))
 
-            def call():
-                return ops.flash_attention(q, k, v, causal=causal)
-        got = call().clone()
-        want = ref.flash_attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = 2e-4 if dtype == torch.float32 else 3e-2
-        if not (got.dtype == dtype and torch.allclose(
-                got.float(), want.float(), rtol=tol, atol=tol)):
-            raise AssertionError(f"flash_attention {label}: max err {err}")
-        if not torch.equal(call(), got):
-            raise AssertionError(f"flash_attention {label}: two calls differ")
-        work = (2.0 if causal else 4.0) * B * H * T * T * d
-        f32 = dtype == torch.float32
-        b, by = bound_ms(4 * B * H * T * d * got.element_size(), 0.0,
-                         ops_bf16=0.0 if f32 else work,
-                         ops_tf32=3.0 * work if f32 else 0.0)
-        large = "large" in label
-        reps = 10 if large else 50
-        results[label] = dict(
-            shape=[B, H, T, d], causal=causal, dtype=str(dtype)[6:],
-            max_abs_err=err, tol=tol, ms=cuda_ms(call, reps),
-            kernel_ms=device_ms(call, min(reps, 20),
-                                "flash_attention_kernel"),
-            plain_ms=cuda_ms(
-                lambda: ref.flash_attention_ref(q, k, v, causal=causal),
-                3 if large else 10),
-            bound_ms=b, bound_by=by,
-            library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=causal),
-                               reps),
-            library_kernel_ms=device_ms(
-                lambda: sdpa(q, k, v, is_causal=causal), min(reps, 20),
-                None))
-        del q, k, v, got, want
-    for label, r in results.items():
-        log(f"kernel flash_attention {label} {r['shape']} "
+        def call():
+            return ops.flash_attention(q, k, v, causal=causal)
+    got = call().clone()
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    if not (got.dtype == dtype and torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol)):
+        raise AssertionError(f"flash_attention {label}: max err {err}")
+    if not torch.equal(call(), got):
+        raise AssertionError(f"flash_attention {label}: two calls differ")
+    work = (2.0 if causal else 4.0) * B * H * T * T * d
+    f32 = dtype == torch.float32
+    b, by = bound_ms(4 * B * H * T * d * got.element_size(), 0.0,
+                     ops_bf16=0.0 if f32 else work,
+                     ops_tf32=3.0 * work if f32 else 0.0)
+    large = "large" in label
+    reps = 10 if large else 50
+    return dict(
+        shape=[B, H, T, d], causal=causal, dtype=str(dtype)[6:],
+        max_abs_err=err, tol=tol, ms=cuda_ms(call, reps),
+        kernel_ms=device_ms(call, min(reps, 20), "flash_attention_kernel"),
+        plain_ms=cuda_ms(
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+            3 if large else 10),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), reps),
+        library_kernel_ms=device_ms(
+            lambda: sdpa(q, k, v, is_causal=causal), min(reps, 20), None))
+
+
+def flash_line(label: str, r: dict) -> str:
+    return (f"kernel flash_attention {label} {r['shape']} "
             f"causal={r['causal']} {r['dtype']}: "
             f"max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}) "
             f"ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) library_ms={r['library_ms']:.4f} "
             f"library_kernel_ms={r['library_kernel_ms']:.4f}")
+
+
+def check_flash_attention():
+    """Phase 3 for ``flash_attention``: :func:`flash_case` at the LM path's
+    prefill shape and the other cases of ``FLASH_CASES``; then the SASS
+    count of :func:`flash_sass`."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {label: flash_case(label, *case, gen)
+               for label, case in FLASH_CASES}
+    for label, r in results.items():
+        log(flash_line(label, r))
     flash_sass()
     return results
 
@@ -4365,6 +4390,467 @@ def lm_train() -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 16
+FAM_BATCH, FAM_PROMPT, FAM_NEW = 4, 512, 32
+FAM_MOE, FAM_MOE_LAYERS = "qwen3-moe-30b-a3b", 8     # of 48: 22.4 GB in f32
+FAM_SSM = "mamba2-1.3b"
+FAM_HYBRID = "jamba-1.5-large-398b"
+# one MoE layer of Jamba's full width is 38.6 GB in f32: one whole 8-layer
+# period at reduced width instead
+FAM_HYBRID_CUT = dict(n_layers=8, d_model=1024, max_experts=16)
+FAM_ENCDEC, FAM_ENCDEC_PROMPT = "whisper-base", 32
+FAM_LOCK_LAYERS = 2
+# a pick of the card's router that differs from the CPU's must be a
+# near-tie: the CPU's probabilities of the two experts this close (f32
+# rounding of the router's inputs, a few layers deep)
+FAM_NEAR_TIE = 1e-5
+# mamba2 on the card: a layer's last output from prefill(T + 1) against
+# prefill(T) plus one decode step, fed the same input, as a share of its
+# largest magnitude (the chunked scan against the recurrence in f32)
+FAM_STEP_REL = 1e-4
+# (arch, layers or None for the config's own, batch, seq) of 16.5
+FAM_TRAIN = ((FAM_MOE, 2, 2, 256), (FAM_SSM, 8, 4, 512),
+             (FAM_ENCDEC, None, 4, 256))
+FAM_TRAIN_STEPS = 5
+
+
+@contextlib.contextmanager
+def moe_picks(record=None, replay=None, ties=None):
+    """Record the top-k picks of every MoE layer call in ``record`` (the
+    card's run), or replay them: each MoE call takes the next recorded
+    picks (``moe_apply(expert_idx=...)``, the CPU's run in lockstep), its
+    own picks compared with them and every differing pick appended to
+    ``ties`` as (call, b, t, k, own expert, card expert, |p own - p card|)
+    from the CPU's router probabilities."""
+    from repro_torch.models import moe
+    route, apply = moe.route, moe.moe_apply
+    calls = [0]
+
+    def recording(p, x, m):
+        out = route(p, x, m)
+        record.append(out[2])
+        return out
+
+    def replaying(p, x, cfg, act="silu", expert_idx=None):
+        card = replay[calls[0]].to(x.device)
+        probs, _, own = route(p, x, cfg.moe)
+        for b, t, k in (own != card).nonzero().tolist():
+            o, c = int(own[b, t, k]), int(card[b, t, k])
+            ties.append((calls[0], b, t, k, o, c,
+                         abs(float(probs[b, t, o] - probs[b, t, c]))))
+        calls[0] += 1
+        return apply(p, x, cfg, act, expert_idx=card)
+    try:
+        if record is not None:
+            moe.route = recording
+        if replay is not None:
+            moe.moe_apply = replaying
+        yield calls
+    finally:
+        moe.route, moe.moe_apply = route, apply
+
+
+def flash_per_prefill(cfg) -> int:
+    """``flash_attention`` launches in one prefill: every full causal
+    attention layer without softcap (qwen3-moe 8 of 8 at the cut depth,
+    Jamba 1 of 8, whisper's 6 decoder layers) and, in full mode, every
+    encoder layer (whisper's 6)."""
+    from repro_torch.models import transformer
+    if cfg.is_encoder_decoder:
+        return cfg.n_encoder_layers + cfg.n_layers
+    return sum(kind == "attn" and cfg.attn_softcap == 0
+               for kind, _ in transformer.layer_kinds(cfg))
+
+
+def family_frames(cfg, batch, device, seed=3):
+    if not cfg.is_encoder_decoder:
+        return None
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), device=device,
+                       generator=torch.Generator(device).manual_seed(seed))
+
+
+def family_lockstep(cfg, params, prompts, frames, label: str, smi: str):
+    """The card's ``generate`` over ``params`` (picks of every MoE layer
+    recorded), then the same params on the CPU replaying the prefill and
+    every decode step in lockstep, fed the card's tokens and, in each MoE
+    layer, the card's picks (the CPU's own picks must tie them): logits as
+    a share of the largest |logit| within ``LM_PREFILL_REL`` and
+    ``LM_DECODE_REL``, as phase 10 holds them, greedy tokens equal where
+    the top-two gap is clear.  Returns the near-ties."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    S = prompts.shape[1] + FAM_NEW
+    picks, steps = [], []
+    with moe_picks(record=picks):
+        seqs = generate(Model(cfg, device=CARD), params, prompts, FAM_NEW,
+                        cache_len=S, frames=frames, step_logits=steps)
+    t0 = time.perf_counter()
+    cpu = Model(cfg, device="cpu")
+    cpu_params = cpu.init()
+    cpu_params.load_state_dict(params.state_dict())
+    T0 = prompts.shape[1]
+    batch = {"tokens": prompts.cpu()}
+    if frames is not None:
+        batch["frames"] = frames.cpu()
+    seqs = seqs.cpu()
+    ties, rels, compared, skipped = [], [], 0, 0
+    with torch.no_grad(), moe_picks(replay=picks, ties=ties) as calls:
+        logits, caches = cpu.prefill(cpu_params, batch, cache_seq=S)
+        for i in range(FAM_NEW + 1):
+            card = steps[i].cpu()
+            scale = float(logits.abs().max())
+            rel = float((card - logits).abs().max()) / scale
+            rels.append(rel)
+            if rel > (LM_PREFILL_REL if i == 0 else LM_DECODE_REL):
+                raise AssertionError(f"{label} step {i}: card logits "
+                                     f"{rel:.3g} of the largest |logit| "
+                                     f"from the CPU's")
+            if i == FAM_NEW:
+                break
+            tok = seqs[:, T0 + i]
+            top2 = torch.topk(logits, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_DECODE_REL * scale
+            mine = torch.clamp(logits.argmax(-1), max=cfg.vocab_size - 1)
+            if not torch.equal(mine[sure], tok[sure].long()):
+                raise AssertionError(f"{label} step {i}: greedy tokens "
+                                     f"differ where the top-two gap is "
+                                     f"clear")
+            compared += int(sure.sum())
+            skipped += int((~sure).sum())
+            logits, caches = cpu.decode_step(cpu_params, tok[:, None],
+                                             caches, T0 + i)
+    if calls[0] != len(picks):
+        raise AssertionError(f"{label}: {calls[0]} MoE calls replayed of "
+                             f"{len(picks)} recorded")
+    n_picks = sum(p.numel() for p in picks)
+    worst = max((t[-1] for t in ties), default=0.0)
+    log(f"fam {label} lockstep on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): prefill logits within "
+        f"{rels[0]:.3g} of the largest |logit| (tol {LM_PREFILL_REL}), "
+        f"decode within {max(rels[1:]):.3g} (tol {LM_DECODE_REL}); greedy "
+        f"tokens equal at {compared} of {compared + skipped} picks "
+        f"({skipped} near-ties not compared); MoE picks {n_picks} in "
+        f"{len(picks)} layer calls, {len(ties)} differ from the CPU's own "
+        f"(largest probability gap {worst:.3g}, tol {FAM_NEAR_TIE}) | {smi}")
+    for call, b, t, k, o, c, gap in ties:
+        log(f"fam {label} near-tie: MoE call {call} row {b} token {t} "
+            f"pick {k}: CPU expert {o}, card expert {c}, probability gap "
+            f"{gap:.3g}")
+    if worst > FAM_NEAR_TIE:
+        raise AssertionError(f"{label}: a pick differs by {worst:.3g} in "
+                             f"router probability")
+    return ties
+
+
+def family_serve(name: str, cfg, smi: str, lock_cfg=None) -> dict:
+    """One family through ``generate`` on the card: counts zeroed just
+    before the first call and read just after it (one prefill: the flash
+    launches must be :func:`flash_per_prefill`), then prefill and generate timed
+    and peak memory; then the CPU lockstep (:func:`family_lockstep`) over
+    the whole model, or over ``lock_cfg``'s first layers of the same
+    weights.  Returns the record of the run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model, moe, transformer
+    T0 = FAM_ENCDEC_PROMPT if cfg.is_encoder_decoder else FAM_PROMPT
+    S = T0 + FAM_NEW
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=CARD)
+    params = model.init(torch.Generator(CARD).manual_seed(0))
+    n_params = sum(t.numel() for t in params.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (FAM_BATCH, T0),
+                            generator=torch.Generator(CARD).manual_seed(1),
+                            device=CARD, dtype=torch.int32)
+    frames = family_frames(cfg, FAM_BATCH, CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    picks, steps = [], []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with moe_picks(record=picks):
+        seqs = generate(model, params, prompts, FAM_NEW, cache_len=S,
+                        frames=frames, step_logits=steps)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches["flash_attention"] != flash_per_prefill(cfg):
+        raise AssertionError(f"fam {name}: flash_attention launched "
+                             f"{launches['flash_attention']} times in one "
+                             f"prefill, not {flash_per_prefill(cfg)}")
+    if seqs.shape != (FAM_BATCH, S) or len(steps) != FAM_NEW + 1 or not all(
+            torch.isfinite(x).all() for x in steps):
+        raise AssertionError(f"fam {name}: wrong shape or non-finite logits")
+    dropped = []
+    if cfg.moe is not None:
+        cap = moe.capacity(cfg.moe, T0)
+        n_moe = sum(k == "moe" for _, k in transformer.layer_kinds(cfg))
+        dropped = [int((~moe._slots(p, cfg.moe, cap)[0]).sum())
+                   for p in picks[:n_moe]]
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: model.prefill(params, batch,
+                                                   cache_seq=S), 3)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        generate(model, params, prompts, FAM_NEW, cache_len=S, frames=frames)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    gen_s = min(walls)
+    decode_ms = (1e3 * gen_s - prefill_ms) / FAM_NEW
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+               flash_launches=launches["flash_attention"],
+               prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               generate_s=gen_s, tokens_per_s=FAM_BATCH * FAM_NEW / gen_s,
+               peak_gb=peak / 1e9, dropped_at_prefill=dropped)
+    log(f"fam {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params:,} params f32 (init {init_s:.1f} s); "
+        f"B={FAM_BATCH} prompt={T0} new={FAM_NEW}: launches {launches} "
+        f"| {smi}")
+    log(f"fam {name}: prefill_ms={prefill_ms:.3f} decode_ms_per_token="
+        f"{decode_ms:.3f} generate_s={gen_s:.4f} (first {first_s:.3f}) "
+        f"tokens_per_s={rec['tokens_per_s']:.1f} peak_mem_gb="
+        f"{peak / 1e9:.3f} | {smi}")
+    if cfg.moe is not None:
+        log(f"fam {name}: tokens x picks dropped at capacity "
+            f"{moe.capacity(cfg.moe, T0)} in the prefill, per MoE layer: "
+            f"{dropped} of {FAM_BATCH * T0 * cfg.moe.top_k} each")
+    del picks, steps, seqs
+    if lock_cfg is None:
+        rec["ties"] = len(family_lockstep(cfg, params, prompts, frames, name,
+                                          smi))
+    else:
+        small = Model(lock_cfg, device=CARD).init()
+        keep = {k: v for k, v in params.state_dict().items()
+                if not k.startswith("blocks.")
+                or int(k.split(".")[1]) < lock_cfg.n_layers}
+        small.load_state_dict(keep)
+        del params
+        torch.cuda.empty_cache()
+        rec["ties"] = len(family_lockstep(lock_cfg, small, prompts, frames,
+                                          f"{name} ({lock_cfg.n_layers} "
+                                          f"layers)", smi))
+        del small
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mamba_step_check(cfg, smi: str) -> dict:
+    """mamba2 on the card: a prefill over T + 1 tokens against a prefill
+    over the first T plus one decode step (the chunked scan against the
+    recurrence), layer by layer in lockstep: every Mamba layer takes the
+    T + 1 prefill's input, and its last output from ``mamba_forward``
+    over T + 1 rows must equal ``mamba_decode`` after ``mamba_forward``
+    over T rows within ``FAM_STEP_REL`` of its largest magnitude.  The
+    whole stack's two last logits are printed beside it: through 48
+    random-init layers the f32 rounding of the two forms is amplified, as
+    in the JAX package's own run of the same comparison, so that gap is
+    reported, not held."""
+    from repro_torch.models import Model, mamba, transformer
+    from repro_torch.models.layers import embed_apply, rms_norm
+    model = Model(cfg, device=CARD)
+    params = model.init(torch.Generator(CARD).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (FAM_BATCH, FAM_PROMPT + 1),
+                         generator=torch.Generator(CARD).manual_seed(1),
+                         device=CARD, dtype=torch.int32)
+    t0 = time.perf_counter()
+    gaps = []
+    with torch.no_grad():
+        x = embed_apply(params.embed, toks)
+        for lp in params.blocks:
+            h = rms_norm(x, lp.norm1, cfg.norm_eps)
+            full, _ = mamba.mamba_forward(lp.mamba, h, cfg)
+            _, st = mamba.mamba_forward(lp.mamba, h[:, :-1], cfg)
+            step, _ = mamba.mamba_decode(lp.mamba, h[:, -1:], st, cfg)
+            gaps.append(float((step[:, 0] - full[:, -1]).abs().max())
+                        / float(full[:, -1].abs().max()))
+            x, _ = transformer._mlp_half(lp, x + full, cfg)
+        want = transformer._head(params, x[:, -1], cfg)
+        _, caches = model.prefill(params, {"tokens": toks[:, :-1]})
+        got, _ = model.decode_step(params, toks[:, -1:], caches, FAM_PROMPT)
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    log(f"fam {FAM_SSM}: prefill over {FAM_PROMPT + 1} tokens against "
+        f"prefill over {FAM_PROMPT} plus one decode step, per layer in "
+        f"lockstep: the last output within {max(gaps):.3g} of its largest "
+        f"(median {statistics.median(gaps):.3g}, tol {FAM_STEP_REL}); the "
+        f"whole stack's last logits within {rel:.3g} of the largest "
+        f"|logit| ({cfg.n_layers} layers, not held) "
+        f"({time.perf_counter() - t0:.1f} s) | {smi}")
+    if not max(gaps) <= FAM_STEP_REL:
+        raise AssertionError(f"fam {FAM_SSM}: a layer's prefill(T+1) and "
+                             f"prefill(T) + decode differ by {max(gaps):.3g}")
+    del params
+    torch.cuda.empty_cache()
+    return {"layer_rel": max(gaps), "stack_rel": rel}
+
+
+def family_train(smi: str) -> dict:
+    """16.5: ``train_loop`` with AdamW, ``FAM_TRAIN_STEPS`` steps on each
+    of ``FAM_TRAIN``: ms a step, tokens/s, peak memory, every loss finite
+    and, with MoE layers, above its cross-entropy by the aux term; counts
+    zeroed before the first run and read after the last (no
+    ``flash_attention`` launch: attention under autograd takes the chunked
+    softmax).  Then one step's loss and gradients at two layers of full
+    width (seq 64), card against the CPU from the same weights, MoE picks
+    in lockstep, without remat."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import MarkovTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import Model, attention
+    out = {}
+    ops.reset_launches()
+    routes = dict(attention.ROUTES)
+    for name, layers, batch, seq in FAM_TRAIN:
+        cfg = get_arch(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            params, losses = train.train_loop(
+                cfg, steps=FAM_TRAIN_STEPS, batch=batch, seq=seq,
+                lr=TRAIN_LR, log_every=1, device=CARD, step_s=step_s)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        lines = [f.split() for f in text.getvalue().splitlines()
+                 if f.startswith("step ")]
+        ces = [float(f[5]) for f in lines]
+        sec = statistics.median(step_s[1:])
+        n_params = sum(t.numel() for t in params.parameters())
+        log(f"fam train {name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params:,} params f32, AdamW; batch {batch} x "
+            f"seq {seq}, {FAM_TRAIN_STEPS} steps: losses "
+            f"{[round(v, 4) for v in losses]} (ce {ces}); median ms a step "
+            f"{1e3 * sec:.1f} (first {1e3 * step_s[0]:.1f}), tokens/s "
+            f"{batch * seq / sec:.0f}, peak_mem_gb {peak / 1e9:.3f} | {smi}")
+        if len(lines) != FAM_TRAIN_STEPS or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"fam train {name}: losses {losses}")
+        # the logged loss carries the aux term (printed to 4 decimals)
+        if (cfg.moe is not None) != all(
+                float(f[3]) > c for f, c in zip(lines, ces)):
+            raise AssertionError(f"fam train {name}: aux term {lines}")
+        out[name] = dict(layers=cfg.n_layers, batch=batch, seq=seq,
+                         losses=losses, ms_per_step=1e3 * sec,
+                         tokens_per_s=batch * seq / sec, peak_gb=peak / 1e9)
+        del params
+    grad_calls = attention.ROUTES["chunked_grad"] - routes["chunked_grad"]
+    launches = dict(ops.LAUNCHES)
+    log(f"fam train: launches {launches}; attention calls under autograd "
+        f"{grad_calls} (flash {attention.ROUTES['flash'] - routes['flash']})")
+    if launches["flash_attention"] != 0 or grad_calls == 0:
+        raise AssertionError("fam train: flash launched under autograd")
+    out["flash_launches"] = launches["flash_attention"]
+
+    for name, _, _, _ in FAM_TRAIN:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(name), n_layers=FAM_LOCK_LAYERS,
+                                  **({"n_encoder_layers": FAM_LOCK_LAYERS}
+                                     if get_arch(name).is_encoder_decoder
+                                     else {}))
+        model = Model(cfg, device=CARD)
+        params = model.init(torch.Generator(CARD).manual_seed(0))
+        cpu = Model(cfg, device="cpu")
+        cpu_params = cpu.init()
+        cpu_params.load_state_dict(params.state_dict())
+        b = next(MarkovTokens(cfg.vocab_size, seed=0).batches(
+            2, TRAIN_LOCK_SEQ, 1))
+        b = {k: torch.from_numpy(v) for k, v in b.items()}
+        frames = family_frames(cfg, 2, "cpu")
+        if frames is not None:
+            b["frames"] = frames
+        picks, ties, res = [], [], []
+        for m, p, ctx in ((model, params, moe_picks(record=picks)),
+                          (cpu, cpu_params, moe_picks(replay=picks,
+                                                      ties=ties))):
+            p.requires_grad_(True)
+            before = ops.LAUNCHES["flash_attention"]
+            with ctx:
+                loss, _ = m.loss(p, {k: v.to(m.device) for k, v in b.items()},
+                                 remat=False)
+            grads = torch.autograd.grad(loss, list(p.parameters()))
+            if ops.LAUNCHES["flash_attention"] != before:
+                raise AssertionError("fam train: flash under autograd")
+            res.append((float(loss.detach()), [host(g) for g in grads]))
+        (loss, grads), (want_loss, want) = res
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        worst = max(float((g - w).abs().max()) / float(w.abs().max())
+                    for g, w in zip(grads, want))
+        gap = max((t[-1] for t in ties), default=0.0)
+        log(f"fam train {name} {FAM_LOCK_LAYERS} layers, seq "
+            f"{TRAIN_LOCK_SEQ}: loss {loss:.6f} on the card, {want_loss:.6f} "
+            f"on the CPU (rel {loss_rel:.3g}, tol {TRAIN_LOSS_REL}); "
+            f"{len(grads)} gradients within {worst:.3g} of each leaf's "
+            f"largest (tol {TRAIN_GRAD_REL}); MoE picks differing "
+            f"{len(ties)} (gap {gap:.3g}) ({time.perf_counter() - t0:.1f} s)"
+            f" | {smi}")
+        if loss_rel > TRAIN_LOSS_REL or worst > TRAIN_GRAD_REL \
+                or gap > FAM_NEAR_TIE:
+            raise AssertionError(f"fam train {name}: card and CPU differ")
+        out[name]["grad_rel"] = worst
+        del params, cpu_params, grads, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families() -> dict:
+    """Phase 16: the MoE, SSM, hybrid and encoder-decoder LM families on
+    the card in f32 (TF32 off): 16.1 qwen3-moe-30b-a3b at full width, cut
+    from 48 to 8 layers; 16.2 mamba2-1.3b at full size; 16.3 Jamba at
+    reduced width over one whole 8-layer period; 16.4 whisper-base at full
+    size, with its encoder's full-mode ``flash_attention`` held against the
+    plain version at the encoder's shape; each served through
+    ``generate`` (:func:`family_serve`), counts zeroed just before its
+    first call and read just after; 16.5 training
+    (:func:`family_train`).  Returns the records, with the flash launches
+    of each counted run."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    import dataclasses
+    smi = nvidia_smi()
+    out = {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(FAM_MOE), n_layers=FAM_MOE_LAYERS)
+    out[FAM_MOE] = family_serve(
+        FAM_MOE, cfg, smi,
+        lock_cfg=dataclasses.replace(cfg, n_layers=FAM_LOCK_LAYERS))
+    log(f"fam 16.1 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cfg = get_arch(FAM_SSM)
+    out[FAM_SSM] = family_serve(
+        FAM_SSM, cfg, smi,
+        lock_cfg=dataclasses.replace(cfg, n_layers=FAM_LOCK_LAYERS))
+    out[FAM_SSM]["step"] = mamba_step_check(cfg, smi)
+    log(f"fam 16.2 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cfg = reduced(get_arch(FAM_HYBRID), **FAM_HYBRID_CUT)
+    out[FAM_HYBRID] = family_serve(FAM_HYBRID, cfg, smi)
+    log(f"fam 16.3 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cfg = get_arch(FAM_ENCDEC)
+    out[FAM_ENCDEC] = family_serve(FAM_ENCDEC, cfg, smi)
+    r = flash_case("encoder_full", FAM_BATCH, cfg.n_heads, cfg.encoder_seq,
+                   cfg.resolved_head_dim, False, torch.float32,
+                   torch.Generator(device=CARD).manual_seed(7))
+    log(flash_line("encoder_full", r) + f" | {smi}")
+    out["encoder_full"] = r
+    log(f"fam 16.4 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["train"] = family_train(smi)
+    log(f"fam 16.5 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4511,6 +4997,20 @@ def main() -> int:
     log(f"launches on the LM train path (step 1): {train_launches}; "
         f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
+    # the MoE, SSM, hybrid and encoder-decoder families: counts zeroed just
+    # before each family's first generate and read just after it, and
+    # before the training runs and after them
+    t0 = time.perf_counter()
+    fam = lm_families()
+    torch.cuda.synchronize()
+    fam_launches = {k: fam[k]["flash_launches"]
+                    for k in (FAM_MOE, FAM_SSM, FAM_HYBRID, FAM_ENCDEC)}
+    fam_launches["train"] = fam["train"]["flash_launches"]
+    kernel_results["flash_attention"]["encoder_full"] = fam.pop(
+        "encoder_full")
+    log(f"launches of flash_attention on the LM family paths: "
+        f"{fam_launches}; phase 16 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "kernel_ms", "shape")
@@ -4530,7 +5030,8 @@ def main() -> int:
                if name in ("stump_scan", *STUMP_KERNELS) else {}),
             **({"mesh_launches": mesh_launches[name]}
                if name in mesh_launches else {}),
-            **({"train_launches": train_launches[name]}
+            **({"train_launches": train_launches[name],
+                "family_launches": fam_launches}
                if name == "flash_attention" else {}),
             **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()

@@ -300,11 +300,19 @@ def domain_data_from_numpy(clients: Sequence, val, test) -> Dict:
             "val": pair(*val), "test": pair(*test)}
 
 
+LAYER_STACKS = ("enc_layers", "dec_layers")
+
+
 def _lm_path(name: str, p: int):
     """A port LM param's name -> (its path in the JAX package's params
-    pytree, its period): layer i is period ``i // p`` of slot ``i % p``;
-    a param outside the blocks has no period."""
+    pytree, its index on the leaf's leading axis).  In a decoder stack
+    layer i is period ``i // p`` of slot ``i % p`` of ``blocks``; in an
+    encoder-decoder stack layer i is entry i of ``enc_layers`` or
+    ``dec_layers``, stacked per layer; a param outside the layers has no
+    index."""
     parts = name.split(".")
+    if parts[0] in LAYER_STACKS:
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
     if parts[0] != "blocks":
         return tuple(parts), None
     i = int(parts[1])
@@ -313,48 +321,54 @@ def _lm_path(name: str, p: int):
 
 def lm_leaf(tree: Mapping, name: str, cfg: ArchConfig):
     """The value for the port's LM param ``name`` in the JAX package's
-    stacked params pytree (one period of its slot's stacked leaf)."""
-    path, period = _lm_path(name, cfg.pattern_period)
+    stacked params pytree (one period of its slot's stacked leaf, or one
+    layer of an encoder-decoder stack's)."""
+    path, index = _lm_path(name, cfg.pattern_period)
     for key in path:
         tree = tree[key]
-    return tree if period is None else tree[period]
+    return tree if index is None else tree[index]
 
 
 def lm_tree(named: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict:
     """The JAX package's stacked LM params pytree from tensors keyed by the
     port's param names (``dict(params.named_parameters())``, or an
-    optimizer moment keyed alike): ``embed``, ``final_norm``, ``lm_head``
-    where untied, and ``blocks``, a tuple of one dict a pattern slot whose
-    leaves stack the slot's layers over periods."""
+    optimizer moment keyed alike).  A decoder stack: ``embed``,
+    ``final_norm``, ``lm_head`` where untied, and ``blocks``, a tuple of
+    one dict a pattern slot whose leaves stack the slot's layers over
+    periods.  An encoder-decoder stack: ``embed``, ``enc_pos``,
+    ``enc_norm``, ``final_norm``, ``lm_head``, and ``enc_layers`` and
+    ``dec_layers``, dicts whose leaves stack the layers."""
     p = cfg.pattern_period
     tree: Dict = {}
     stacks: Dict = {}
     for name, t in named.items():
-        path, period = _lm_path(name, p)
-        if period is None:
+        path, index = _lm_path(name, p)
+        if index is None:
             tree[path[0]] = t
         else:
-            stacks.setdefault(path, []).append((period, t))
+            stacks.setdefault(path, []).append((index, t))
     slots: Dict = {}
     for path, ts in stacks.items():
-        node = slots.setdefault(path[1], {})
-        for key in path[2:-1]:
+        node, rest = ((slots.setdefault(path[1], {}), path[2:])
+                      if path[0] == "blocks" else
+                      (tree.setdefault(path[0], {}), path[1:]))
+        for key in rest[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = torch.stack([t for _, t in sorted(
-            ts, key=lambda pt: pt[0])])
-    tree["blocks"] = tuple(slots[s] for s in range(p))
+        node[rest[-1]] = torch.stack([t for _, t in sorted(
+            ts, key=lambda it: it[0])])
+    if not cfg.is_encoder_decoder:
+        tree["blocks"] = tuple(slots[s] for s in range(p))
     return tree
 
 
 def lm_params_from_numpy(params: Mapping, cfg: ArchConfig, device="cpu"):
-    """The port's :class:`~repro_torch.models.transformer.Transformer` from
-    the JAX package's LM params pytree as numpy: ``embed``,
-    ``final_norm``, ``lm_head`` where untied, and ``blocks``, one dict per
-    pattern slot whose leaves carry a leading ``n_periods`` axis.  Layer i
-    takes period ``i // p`` of slot ``i % p``."""
-    from repro_torch.models.transformer import Transformer
-    dev = resolve_device(device)
-    model = Transformer(cfg, gen=None, device=dev)
+    """The port's LM params (a
+    :class:`~repro_torch.models.transformer.Transformer`, or an
+    :class:`~repro_torch.models.encdec.EncDec` for an encoder-decoder arch)
+    from the JAX package's LM params pytree as numpy (see
+    :func:`lm_tree` for its layout)."""
+    from repro_torch.models import Model
+    model = Model(cfg, device=device).init()
     with torch.no_grad():
         for name, dst in model.named_parameters():
             src = np.asarray(lm_leaf(params, name, cfg))

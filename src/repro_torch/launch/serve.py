@@ -4,8 +4,12 @@ architecture (reduced preset), on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --tokens 8 [--device cpu]
 
-Prefill runs the ``flash_attention`` kernel on every full causal attention
-layer (``models/attention.py``); decode is plain PyTorch.
+Every architecture of ``configs/`` runs: decoder stacks of attention,
+Mamba2 and MoE layers, and the encoder-decoder (whisper-base), which is
+fed zero frames (B, encoder_seq, d_model) here, as the JAX package's
+launcher feeds it.  Prefill runs the ``flash_attention`` kernel on every
+full causal attention layer (``models/attention.py``) and, in full mode,
+on every encoder layer (``models/encdec.py``); decode is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -33,21 +37,25 @@ def _pick(logits: torch.Tensor, vocab_size: int, temperature: float,
 
 
 def generate(model: Model, params, prompts: torch.Tensor, n_new: int,
-             cache_len: int, temperature: float = 0.0,
+             cache_len: int, frames: Optional[torch.Tensor] = None,
+             temperature: float = 0.0,
              gen: Optional[torch.Generator] = None,
              step_logits: Optional[List[torch.Tensor]] = None
              ) -> torch.Tensor:
     """prompts: (B, T0) -> (B, T0 + n_new), greedy or, with
     ``temperature > 0``, sampled from ``gen`` (a generator on the model's
-    device; it cannot give ``jax.random.categorical``'s draws).  Where
-    ``step_logits`` is a list, the prefill's logits and every decode
+    device; it cannot give ``jax.random.categorical``'s draws).  An
+    encoder-decoder model takes ``frames`` (B, encoder_seq, d_model).
+    Where ``step_logits`` is a list, the prefill's logits and every decode
     step's are appended to it, n_new + 1 of (B, Vpad) f32."""
     cfg = model.cfg
     T0 = prompts.shape[1]
-    prompts = prompts.to(model.device, torch.int32)
+    batch = {"tokens": prompts.to(model.device, torch.int32)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = frames.to(model.device)
+    prompts = batch["tokens"]
     with torch.no_grad():
-        logits, caches = model.prefill(params, {"tokens": prompts},
-                                       cache_seq=cache_len)
+        logits, caches = model.prefill(params, batch, cache_seq=cache_len)
         out = [prompts]
         for i in range(n_new):
             if step_logits is not None:
@@ -77,9 +85,12 @@ def main(argv=None) -> None:
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator(model.device).manual_seed(1),
         device=model.device, dtype=torch.int32)
+    frames = (torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model),
+                          device=model.device)
+              if cfg.is_encoder_decoder else None)
     t0 = time.perf_counter()
     seqs = generate(model, params, prompts, args.tokens,
-                    cache_len=args.prompt_len + args.tokens,
+                    cache_len=args.prompt_len + args.tokens, frames=frames,
                     temperature=args.temperature,
                     gen=torch.Generator(model.device).manual_seed(2))
     if model.device.type == "cuda":

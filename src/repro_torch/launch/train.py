@@ -17,8 +17,10 @@ chunked softmax, as the JAX package's training does
 layout (``repro_torch.checkpoint``, ``convert.lm_tree``), so a run resumes
 from either package's.  The reference's behaviour is kept, quirks
 included: the warmup makes step 0's learning rate 0, and a resumed run
-restarts the Markov stream from its seed.  Encoder-decoder archs raise
-(``models/encdec.py`` is not ported).
+restarts the Markov stream from its seed.  Every architecture trains: an
+audio-frontend arch (whisper-base) is fed zero frames (B, encoder_seq,
+d_model), and an MoE arch's loss, logged, carries its load-balance aux
+term.
 """
 from __future__ import annotations
 
@@ -107,8 +109,11 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
     for i, b in enumerate(stream.batches(batch, seq, steps - step0)):
         step = step0 + i
         ts = time.perf_counter()
-        loss, ce, opt_state = train_step(place(b, model.device), step,
-                                         opt_state)
+        b = place(b, model.device)
+        if cfg.frontend == "audio":
+            b["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                      device=model.device)
+        loss, ce, opt_state = train_step(b, step, opt_state)
         losses.append(float(loss))
         if step_s is not None:
             step_s.append(time.perf_counter() - ts)

@@ -132,14 +132,15 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     return torch.cat(outs, dim=1).reshape(B, Tq, Hq, hd)
 
 
-def _flash(q, k, v) -> torch.Tensor:
-    """Causal attention through the flash kernel: q (B,T,Hq,hd), k,v
-    (B,T,Hkv,hd) -> (B,T,Hq,hd).  The kernel reads the (B,H,T,hd) views
-    of all three in place and writes the (B,T,Hq,hd) result directly; q
-    head h reads kv head h // G as in :func:`_sdpa_chunked`."""
+def _flash(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Attention through the flash kernel, causal or (for the
+    encoder-decoder's encoder) full: q (B,T,Hq,hd), k,v (B,T,Hkv,hd) ->
+    (B,T,Hq,hd).  The kernel reads the (B,H,T,hd) views of all three in
+    place and writes the (B,T,Hq,hd) result directly; q head h reads kv
+    head h // G as in :func:`_sdpa_chunked`."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True,
+                        v.transpose(1, 2), causal=causal,
                         out=out.transpose(1, 2))
     return out
 

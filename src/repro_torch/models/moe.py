@@ -1,0 +1,179 @@
+"""Token-choice top-k Mixture-of-Experts with capacity-bounded scatter
+dispatch, routed independently per batch row.
+
+A port of the JAX package's ``models/moe.py``: the same routing (an f32
+softmax router, top-k by k argmax passes), the same per-row capacity
+(``capacity``), the same dispatch into an (E, C, D) buffer per row with
+overflow slots dropped, the dense per-expert SwiGLU/GeGLU over that
+buffer, the gate-weighted combine and the Switch load-balance aux loss.
+The reference's ``tensor_sm`` ``shard_map`` branch runs only under a
+multi-device mesh context; without one (and a single card has none) it
+takes the ``dense_path`` ported here.  Its ``constrain`` anchors are
+no-ops without a mesh and are dropped.
+
+The params are an ``nn.ParameterDict`` keyed ``router`` (D, E), always
+f32, ``w_gate`` and ``w_up`` (E, D, F) and ``w_down`` (E, F, D), as the
+reference's dict, so ``convert`` maps the leaves by name.  There is no
+kernel here: the reference's dispatch and expert products are plain
+``jnp`` outside any Pallas kernel, so here they are indexing and
+``torch.einsum``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.models.layers import dense_init
+
+F32 = torch.float32
+
+
+def moe_init(gen: Optional[torch.Generator], cfg: ArchConfig, dtype=F32,
+             device="cpu") -> nn.ParameterDict:
+    """One MoE layer's params, drawn from ``gen`` (``None`` leaves them
+    uninitialized, for weights that are loaded next); built with
+    ``requires_grad=False``, as the stack's other params."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+
+    def stack(di, do):
+        if gen is None:
+            return torch.empty((e, di, do), dtype=dtype, device=device)
+        return torch.stack([dense_init(gen, di, do, dtype, device)
+                            for _ in range(e)])
+
+    return nn.ParameterDict({
+        k: nn.Parameter(w, requires_grad=False) for k, w in (
+            ("router", dense_init(gen, d, e, F32, device)),
+            ("w_gate", stack(d, f)),
+            ("w_up", stack(d, f)),
+            ("w_down", stack(f, d)))})
+
+
+def capacity(m: MoEConfig, tokens_per_row: int) -> int:
+    """Expert slots a row: Python float arithmetic and ``int()``, as the
+    reference computes it (K at T = 1, so decode drops nothing)."""
+    cap = int(m.capacity_factor * tokens_per_row * m.top_k / m.num_experts)
+    return max(m.top_k, min(tokens_per_row, max(1, cap)))
+
+
+def _topk_iterative(probs: torch.Tensor, k: int):
+    """Top-k by k argmax passes, each pick pushed down by 1e9 before the
+    next, as the reference takes it: ``torch.argmax`` returns the first of
+    equal maxima, as ``jnp.argmax`` does.  Returns (values, int32
+    indices), each (..., k)."""
+    vals, idxs = [], []
+    p = probs
+    for _ in range(k):
+        i = torch.argmax(p, dim=-1)
+        vals.append(torch.gather(p, -1, i[..., None])[..., 0])
+        idxs.append(i)
+        p = p - F.one_hot(i, probs.shape[-1]).to(p.dtype) * 1e9
+    return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1).to(
+        torch.int32)
+
+
+def _slots(expert_idx: torch.Tensor, m: MoEConfig, cap: int):
+    """(keep, dst), each (B, T*K), from (B, T, K) top-k choices: per row,
+    each expert's slots are numbered by a cumsum over the token-major
+    (T*K) order, and a slot at or past ``cap`` goes to the sentinel
+    ``E*cap`` (dropped)."""
+    B = expert_idx.shape[0]
+    E = m.num_experts
+    flat_e = expert_idx.reshape(B, -1).long()
+    pos = torch.cumsum(F.one_hot(flat_e, E), dim=1) - 1    # (B, T*K, E)
+    pos_in_e = torch.gather(pos, 2, flat_e[..., None])[..., 0]
+    keep = pos_in_e < cap
+    return keep, torch.where(keep, flat_e * cap + pos_in_e, E * cap)
+
+
+def _dispatch(x: torch.Tensor, expert_idx: torch.Tensor, m: MoEConfig,
+              cap: int):
+    """Scatter every row of (B, T, D) tokens into its (E, C, D) expert
+    buffer, given the (B, T, K) top-k choices (:func:`_slots`).  Returns
+    (keep, dst, tok, xe): keep and dst (B, T*K), tok (T*K,) and xe (B, E,
+    C, D).
+
+    The rows share one (B*E*cap + 1, D) buffer whose last row takes every
+    dropped slot and is sliced off; kept destinations are unique, so the
+    write is deterministic."""
+    B, T, D = x.shape
+    E, K = m.num_experts, m.top_k
+    keep, dst = _slots(expert_idx, m, cap)
+    tok = torch.arange(T, device=x.device).repeat_interleave(K)
+    rows = torch.arange(B, device=x.device)[:, None] * (E * cap)
+    flat_dst = torch.where(keep, dst + rows, B * E * cap)
+    buf = x.new_zeros((B * E * cap + 1, D)).index_put(
+        (flat_dst.reshape(-1),), x[:, tok].reshape(B * T * K, D))
+    return keep, dst, tok, buf[:-1].reshape(B, E, cap, D)
+
+
+def _dispatch_row(x_row: torch.Tensor, expert_idx: torch.Tensor,
+                  m: MoEConfig, cap: int):
+    """One row of :func:`_dispatch`: x_row (T, D), expert_idx (T, K) ->
+    (keep, dst, tok, xe (E, C, D)), as the reference's ``_dispatch_row``."""
+    keep, dst, tok, xe = _dispatch(x_row[None], expert_idx[None], m, cap)
+    return keep[0], dst[0], tok, xe[0]
+
+
+def _expert_compute(p, xe: torch.Tensor, act: str) -> torch.Tensor:
+    """(B,E,C,D) -> (B,E,C,D) through the per-expert SwiGLU (``gelu`` is
+    the tanh form, as ``jax.nn.gelu`` computes it by default): the
+    reference's ``dense_path``."""
+    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
+    return torch.einsum("becf,efd->becd", g * u, p["w_down"])
+
+
+def route(p, x: torch.Tensor, m: MoEConfig):
+    """(probs (B,T,E) f32, normalized gates (B,T,K) f32, expert_idx
+    (B,T,K) int32) from the f32 router."""
+    probs = torch.softmax(x.to(F32) @ p["router"], dim=-1)
+    gate_vals, expert_idx = _topk_iterative(probs, m.top_k)
+    gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, act: str = "silu",
+              expert_idx: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,T,D) -> (out, aux_loss).  Capacity-overflow tokens fall back
+    to the residual path (they add 0 here).  ``expert_idx``, where given,
+    replaces the router's own top-k picks (a (B,T,K) tensor; the gates are
+    still the router's probabilities at those picks, normalized): it lets a
+    run follow another's routing in lockstep."""
+    m = cfg.moe
+    B, T, D = x.shape
+    E, K = m.num_experts, m.top_k
+    C = capacity(m, T)
+
+    probs, gate_vals, own_idx = route(p, x, m)
+    if expert_idx is not None:
+        expert_idx = expert_idx.to(device=x.device, dtype=torch.int32)
+        gate_vals = torch.gather(probs, -1, expert_idx.long())
+        gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True)
+                                 + 1e-9)
+    else:
+        expert_idx = own_idx
+    keep, dst, tok, xe = _dispatch(x, expert_idx, m, C)
+
+    # load-balance auxiliary loss (Switch eq. 4), global over the batch
+    me = torch.mean(probs.reshape(-1, E), dim=0)
+    ce = torch.mean(torch.sum(F.one_hot(expert_idx.reshape(-1, K).long(),
+                                        E).to(F32), dim=1), dim=0)
+    aux = m.aux_loss_coef * E * torch.sum(me * ce)
+
+    ye = _expert_compute(p, xe, act)                       # (B,E,C,D)
+    yf = ye.reshape(B, E * C, D)
+    picked = torch.gather(yf, 1, torch.clamp(dst, max=E * C - 1)[..., None]
+                          .expand(B, T * K, D))
+    picked = torch.where(keep[..., None], picked, 0.0)
+    contrib = picked * gate_vals.reshape(B, T * K, 1).to(ye.dtype)
+    # each token's K contributions are contiguous (tok repeats arange(T)
+    # K times): a sum over K, not an atomic scatter-add
+    return contrib.view(B, T, K, D).sum(2), aux

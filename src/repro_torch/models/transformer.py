@@ -17,10 +17,13 @@ The params are built with ``requires_grad=False``, for serving; training
 switches them on (``Transformer.requires_grad_(True)``, as
 ``launch/train.py`` does).
 
-Attention mixers and dense MLPs are ported.  A Mamba mixer or an MoE MLP
-raises :class:`NotImplementedError` when the stack is built (ROADMAP.md
-lists them).  The reference's ``sharding_ctx.constrain`` is a no-op
-without a mesh and is dropped.
+A layer's mixer is attention (``models/attention.py``) or a Mamba2 SSD
+block (``models/mamba.py``); its MLP, where it has one (``cfg.d_ff > 0``
+or an MoE layer, as the reference's ``_layer_init`` decides), is dense or
+an MoE (``models/moe.py``), whose load-balance aux loss ``forward`` sums
+over layers and ``prefill``/``decode_step`` drop.  A Mamba layer's cache
+is its state dict {ssm, conv}.  The reference's ``sharding_ctx.constrain``
+is a no-op without a mesh and is dropped.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (
-    ArchConfig, ATTN, ATTN_LOCAL, MLP_MOE)
+    ArchConfig, ATTN_LOCAL, MAMBA, MLP_MOE)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     cross_entropy, dense_init, embed_apply, embed_init, lm_head_apply,
     mlp_apply, mlp_init, rms_norm, rms_norm_init)
@@ -66,26 +71,29 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: norm1 + mixer (attention), then norm2 + dense MLP."""
+    """One layer: norm1 + mixer (``attn`` or ``mamba``), then, where the
+    layer has an MLP, norm2 + ``mlp`` (dense) or ``moe``."""
 
     def __init__(self, cfg: ArchConfig, mixer: str, mlp: str, gen=None,
                  dtype=F32, device="cpu"):
         super().__init__()
-        if mixer not in (ATTN, ATTN_LOCAL):
-            raise NotImplementedError(
-                f"{cfg.name}: the {mixer!r} mixer (models/mamba.py) is not "
-                "ported yet; ROADMAP.md lists it")
-        if mlp == MLP_MOE:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE MLP (models/moe.py) is not ported "
-                "yet; ROADMAP.md lists it")
         self.mixer = mixer
         self.norm1 = _param(rms_norm_init(cfg.d_model, dtype, device))
-        self.attn = attn_mod.attn_init(gen, cfg, dtype, device)
+        if mixer == MAMBA:
+            self.mamba = mamba_mod.mamba_init(gen, cfg, dtype, device)
+        else:
+            self.attn = attn_mod.attn_init(gen, cfg, dtype, device)
+        # the MLP kind, or None for a layer without one (mamba2: d_ff 0)
+        self.mlp_kind = mlp if cfg.d_ff > 0 or mlp == MLP_MOE else None
+        if self.mlp_kind is None:
+            return
         self.norm2 = _param(rms_norm_init(cfg.d_model, dtype, device))
-        self.mlp = nn.ParameterDict(
-            {k: _param(w) for k, w in
-             mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device).items()})
+        if mlp == MLP_MOE:
+            self.moe = moe_mod.moe_init(gen, cfg, dtype, device)
+        else:
+            self.mlp = nn.ParameterDict(
+                {k: _param(w) for k, w in
+                 mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device).items()})
 
 
 class Transformer(nn.Module):
@@ -95,10 +103,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, gen: Optional[torch.Generator] = None,
                  dtype=F32, device="cpu"):
         super().__init__()
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder models (models/encdec.py) are "
-                "not ported yet; ROADMAP.md lists them")
         self.embed = _param(embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                        dtype, device))
         self.final_norm = _param(rms_norm_init(cfg.d_model, dtype, device))
@@ -118,8 +122,15 @@ def init_params(gen, cfg: ArchConfig, dtype=F32, device="cpu"
 # block application
 # ---------------------------------------------------------------------------
 
-def _mlp_half(lp: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return x + mlp_apply(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps), cfg.act)
+def _mlp_half(lp: Block, x: torch.Tensor, cfg: ArchConfig):
+    """x + the layer's MLP, and the MoE aux loss (None elsewhere)."""
+    if lp.mlp_kind is None:
+        return x, None
+    h = rms_norm(x, lp.norm2, cfg.norm_eps)
+    if lp.mlp_kind == MLP_MOE:
+        h, aux = moe_mod.moe_apply(lp.moe, h, cfg, cfg.act)
+        return x + h, aux
+    return x + mlp_apply(lp.mlp, h, cfg.act), None
 
 
 def _head(params: Transformer, x: torch.Tensor, cfg: ArchConfig):
@@ -128,20 +139,27 @@ def _head(params: Transformer, x: torch.Tensor, cfg: ArchConfig):
     return lm_head_apply(head, x, cfg.tie_embeddings, cfg.logit_softcap)
 
 
-def _period(blocks, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """One pattern period: its p layers in order."""
+def _period(blocks, cfg: ArchConfig, x: torch.Tensor, aux: torch.Tensor):
+    """One pattern period: its p layers in order; returns (x, aux plus the
+    period's MoE aux losses)."""
     for lp in blocks:
-        window = cfg.sliding_window if lp.mixer == ATTN_LOCAL else 0
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
-        x = x + attn_mod.attn_apply(lp.attn, h, cfg, window=window)
-        x = _mlp_half(lp, x, cfg)
-    return x
+        if lp.mixer == MAMBA:
+            h, _ = mamba_mod.mamba_forward(lp.mamba, h, cfg)
+        else:
+            window = cfg.sliding_window if lp.mixer == ATTN_LOCAL else 0
+            h = attn_mod.attn_apply(lp.attn, h, cfg, window=window)
+        x, a = _mlp_half(lp, x + h, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  tokens: (B,T) -> (logits (B,T,Vpad) f32,
-    aux); aux is 0 (it counts MoE load balance, which is not ported).
+    aux), aux the sum of the MoE layers' load-balance losses (0 without
+    MoE layers).
 
     With ``remat``, and only where autograd records (a forward under
     ``torch.no_grad`` has nothing to recompute), each pattern period runs
@@ -149,16 +167,18 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     recomputed in the backward pass, as the reference's
     ``jax.checkpoint(period_body)`` does."""
     x = embed_apply(params.embed, tokens)
+    aux = torch.zeros((), dtype=F32, device=x.device)
     p = cfg.pattern_period
     blocks = list(params.blocks)
     remat = remat and torch.is_grad_enabled()
     for i in range(0, len(blocks), p):
         period = blocks[i:i + p]
         if remat:
-            x = checkpoint(_period, period, cfg, x, use_reentrant=False)
+            x, aux = checkpoint(_period, period, cfg, x, aux,
+                                use_reentrant=False)
         else:
-            x = _period(period, cfg, x)
-    return _head(params, x, cfg), torch.zeros((), dtype=F32, device=x.device)
+            x, aux = _period(period, cfg, x, aux)
+    return _head(params, x, cfg), aux
 
 
 def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
@@ -177,8 +197,12 @@ def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
                 dtype=torch.bfloat16, device="cpu") -> List[Cache]:
-    """One zeroed cache per layer, in layer order."""
-    return [attn_mod.init_cache(cfg, mixer, batch, seq_len, dtype, device)
+    """One zeroed cache per layer, in layer order: a KV cache for an
+    attention layer, a Mamba state (its conv state in ``dtype``) for a
+    Mamba layer."""
+    return [mamba_mod.init_mamba_state(cfg, batch, dtype, device)
+            if mixer == MAMBA else
+            attn_mod.init_cache(cfg, mixer, batch, seq_len, dtype, device)
             for mixer, _ in layer_kinds(cfg)]
 
 
@@ -186,13 +210,18 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
                 caches: List[Cache], pos: int, cfg: ArchConfig):
     """One decode step.  tokens: (B,1); caches from init_caches/prefill;
     pos: the count of tokens already in the caches.  Returns (logits
-    (B,Vpad) f32, caches), the caches updated in place."""
+    (B,Vpad) f32, caches), the caches updated in place (a Mamba layer's
+    dict takes its new state)."""
     x = embed_apply(params.embed, tokens)
     for lp, c in zip(params.blocks, caches):
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
-        h, _ = attn_mod.attn_decode(lp.attn, h, c, cfg, pos=pos,
-                                    kind=lp.mixer)
-        x = _mlp_half(lp, x + h, cfg)
+        if lp.mixer == MAMBA:
+            h, st = mamba_mod.mamba_decode(lp.mamba, h, c, cfg)
+            c.update(st)
+        else:
+            h, _ = attn_mod.attn_decode(lp.attn, h, c, cfg, pos=pos,
+                                        kind=lp.mixer)
+        x, _ = _mlp_half(lp, x + h, cfg)
     return _head(params, x[:, 0], cfg), caches
 
 
@@ -206,8 +235,11 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     caches = []
     for lp in params.blocks:
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
-        h, c = attn_mod.attn_prefill(lp.attn, h, cfg, kind=lp.mixer,
-                                     cache_seq=S)
-        x = _mlp_half(lp, x + h, cfg)
+        if lp.mixer == MAMBA:
+            h, c = mamba_mod.mamba_forward(lp.mamba, h, cfg)
+        else:
+            h, c = attn_mod.attn_prefill(lp.attn, h, cfg, kind=lp.mixer,
+                                         cache_seq=S)
+        x, _ = _mlp_half(lp, x + h, cfg)
         caches.append(c)
     return _head(params, x[:, -1], cfg), caches

@@ -44,7 +44,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.core.fed_mesh", "repro_torch.optim",
             "repro_torch.checkpoint", "repro_torch.data.tokens",
             "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.models.moe",
+            "repro_torch.models.mamba",
+            "repro_torch.models.encdec"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
