@@ -162,7 +162,20 @@ nonzero (there is no CPU fall-back):
    layers, 2 x 256), mamba2-1.3b (8 layers, 4 x 512) and whisper-base (4
    x 256): ms a step, tokens/s, peak memory, the aux term in the MoE
    loss, no flash launch, and one step's gradients at 2 layers against
-   the CPU's.
+   the CPU's;
+17. the dry run: 17.1 ``launch/dryrun.py`` traced on the card's host on
+   a ``cuda`` mesh of 256 or 512 fake ranks (fake card tensors), at full
+   size: qwen1.5-0.5b x train_4k x 16x16 and x decode_32k x 2x16x16,
+   qwen3-moe-30b-a3b x train_4k x 16x16 x ``moe_bf16_psum``, each record
+   (per-device FLOPs, argument and output bytes, peak live bytes,
+   collectives by kind, forced redistributions, trace wall) beside the
+   JAX package's (``DRYRUN_REFERENCE``), the MoE's expert all-reduce
+   bf16; 17.2 the same ``steps.build`` run for real on a (1,1) mesh over
+   a one-rank NCCL group, qwen1.5-0.5b at full depth in bf16: a prefill
+   of 1 x 32,768, one decode step against its cache and one train step
+   of 1 x 4,096, with their flash launches (24 / 0 / 0), logits and loss
+   against the mesh-free path, counted FLOPs equal to the fake (1,1) dry
+   run's, ms a step, TFLOP/s and peak memory.
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
 path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
@@ -176,7 +189,8 @@ and read just after it (the main path of phases 11 and 12 is their step
 1, of phase 13 its step 2, the run of ``serve_ensemble``, of phase 14
 its step 1, the six training runs, of phase 15 its step 1, the
 full-width ``train_loop``, of phase 16 each family's first ``generate``
-and its three training runs together).
+and its three training runs together, of phase 17 each traced real
+step of 17.2).
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -4851,6 +4865,320 @@ def lm_families() -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 17
+DRYRUN_COMBOS = (("qwen1.5-0.5b", "train_4k", False, "baseline"),
+                 ("qwen1.5-0.5b", "decode_32k", True, "baseline"),
+                 ("qwen3-moe-30b-a3b", "train_4k", False, "moe_bf16_psum"))
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
+# The JAX package's dry run of DRYRUN_COMBOS on the CPU (jax 0.9.0, 512
+# placeholder devices), from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/dryrun_reference.py
+DRYRUN_REFERENCE = json.loads("""
+{
+ "qwen1.5-0.5b/train_4k/pod16x16/baseline": {
+  "status": "ok",
+  "n_devices": 256,
+  "flops_corrected": 19955491799040.0,
+  "argument_size_in_bytes": 11724804,
+  "output_size_in_bytes": 11200896,
+  "collective_bytes_total": 52966709328.0,
+  "collectives": {
+   "all-gather": 197230592.0,
+   "all-reduce": 52232345680.0,
+   "all-to-all": 536870912.0,
+   "collective-permute": 262144.0
+  },
+  "compile_s": 1.14,
+  "wall_s": 3.1
+ },
+ "qwen1.5-0.5b/decode_32k/pod2x16x16/baseline": {
+  "status": "ok",
+  "n_devices": 512,
+  "flops_corrected": 1037238272.0,
+  "argument_size_in_bytes": 809039892,
+  "output_size_in_bytes": 805458328,
+  "collective_bytes_total": 116818176.0,
+  "collectives": {
+   "all-gather": 115998976.0,
+   "all-reduce": 802816.0,
+   "all-to-all": 16384.0
+  },
+  "compile_s": 0.31,
+  "wall_s": 2.3
+ },
+ "qwen3-moe-30b-a3b/train_4k/pod16x16/moe_bf16_psum": {
+  "status": "ok",
+  "n_devices": 256,
+  "flops_corrected": 169378477768704.0,
+  "argument_size_in_bytes": 723304452,
+  "output_size_in_bytes": 722780520,
+  "collective_bytes_total": 1218638659664.0,
+  "collectives": {
+   "all-gather": 24794824704.0,
+   "all-reduce": 1186871590992.0,
+   "reduce-scatter": 452984832.0,
+   "all-to-all": 3489660928.0,
+   "collective-permute": 3029598208.0
+  },
+  "compile_s": 2.59,
+  "wall_s": 13.9
+ }
+}
+""")
+REAL_ARCH = "qwen1.5-0.5b"
+REAL_PREFILL = 32768        # prefill_32k's seq; batch cut from 32 to 1
+REAL_TRAIN = 4096           # train_4k's seq; batch cut from 256 to 1
+REAL_REL = 1e-4             # against the mesh-free path: prefill and decode
+#   run the same ops (bit-equal expected); the train loss is the
+#   vocab-parallel cross entropy (max, sum of exps, log) against logsumexp
+REAL_REPS = 3
+
+
+def dry_run_combos(smi: str) -> dict:
+    """17.1: the dry run as the card's host runs it: each combo of
+    ``DRYRUN_COMBOS`` traced at full size on a ``cuda`` mesh of 256 or 512
+    fake ranks (fake card tensors; nothing is allocated on the card),
+    each record printed beside the JAX package's (``DRYRUN_REFERENCE``).
+    Every trace must end ``ok`` on the right device count, and every
+    all-reduce the MoE layer issues under ``moe_bf16_psum`` must move
+    bf16.  Returns the records."""
+    from repro_torch.launch import dryrun, mesh as pmesh
+    out = {}
+    for arch, shape, multi_pod, variant in DRYRUN_COMBOS:
+        try:
+            rec = dryrun.run_one(arch, shape, multi_pod=multi_pod,
+                                 variant=variant, force=True, device="cuda",
+                                 art_dir=str(DRYRUN_DIR))
+        finally:
+            pmesh.release()
+        mesh = "pod2x16x16" if multi_pod else "pod16x16"
+        key = f"{arch}/{shape}/{mesh}/{variant}"
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {key}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback', '')}")
+        n_dev = 512 if multi_pod else 256
+        if rec["n_devices"] != n_dev:
+            raise AssertionError(f"dry run {key}: {rec['n_devices']} "
+                                 f"devices, not {n_dev}")
+        ref = DRYRUN_REFERENCE[key]
+        ma = rec["memory_analysis"]
+        coll = {k: v["bytes"] for k, v in rec["collectives"].items()
+                if v["count"]}
+        log(f"dryrun 17.1 {key}: flops/dev {rec['flops_corrected']:.6e} "
+            f"(JAX {ref['flops_corrected']:.6e}), args "
+            f"{ma['argument_size_in_bytes']:,} B (JAX "
+            f"{ref['argument_size_in_bytes']:,}), out "
+            f"{ma['output_size_in_bytes']:,} B (JAX "
+            f"{ref['output_size_in_bytes']:,}), peak live "
+            f"{rec['peak_live_bytes']:,} B, collectives {coll} (JAX "
+            f"{ref['collectives']}), redistributions "
+            f"{rec['redistributions']}, trace {rec['trace_s']} s (JAX "
+            f"compile {ref['compile_s']} s) | {smi}")
+        if variant == "moe_bf16_psum":
+            # the expert products' all-reduce (the tensor_sm branch's);
+            # the aux loss's two (E,) means stay f32
+            moe = {k: v for k, v in rec["collectives_by_issuer"].items()
+                   if k.startswith("all-reduce") and "models/moe.py" in k}
+            expert = [k for k in moe if k.endswith(":expert_body")]
+            if not expert or any(" bfloat16 " not in k for k in expert):
+                raise AssertionError(f"dry run {key}: the MoE expert "
+                                     f"all-reduces are {moe}, not bf16")
+            log(f"dryrun 17.1 {key}: MoE all-reduces {moe}")
+        out[key] = rec
+    return out
+
+
+def real_shapes():
+    from repro_torch.configs.base import ShapeConfig
+    return {"prefill": ShapeConfig("prefill_32k_b1", REAL_PREFILL, 1,
+                                   "prefill"),
+            "decode": ShapeConfig("decode_32k_b1", REAL_PREFILL, 1,
+                                  "decode"),
+            "train": ShapeConfig("train_4k_b1", REAL_TRAIN, 1, "train")}
+
+
+def fake_one_device_flops() -> dict:
+    """The dry run's per-device FLOPs of the 17.2 steps on a fake (1, 1)
+    ``cuda`` mesh."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun, mesh as pmesh
+    from repro_torch.launch import shardings as sh
+    cfg = get_arch(REAL_ARCH)
+    pol = sh.ShardingPolicy(batch_axes=("data",))
+    out = {}
+    pmesh.start_fake_group(1)
+    try:
+        mesh = pmesh.make_host_mesh(1, 1, device="cuda")
+        for mode, shape in real_shapes().items():
+            res = dryrun.trace_step(cfg, shape, mesh, pol, device="cuda")
+            out[mode] = res["record"]["flops_corrected"]
+    finally:
+        pmesh.release()
+    return out
+
+
+def real_steps(smi: str, fake_flops: dict) -> dict:
+    """17.2: ``steps.build`` run for real on a (1, 1) mesh over a one-rank
+    NCCL group, bf16 params drawn from a seed, full depth: the prefill
+    (1 x 32,768), one decode step against its cache (at position 32,768:
+    the full-length cache's ring slot 0), one train step (1 x 4,096).
+    Each traced run counts its FLOPs (which must equal the fake (1, 1) dry
+    run's) and its flash launches (24 in the prefill, 0 in decode and
+    train: counts zeroed just before each traced run and read just after);
+    its logits or loss are held to the plain ``Model.prefill`` /
+    ``decode_step`` / ``loss`` on the same params without a mesh; then the
+    step is timed (median of ``REAL_REPS`` host-clocked, synchronized
+    calls outside the cost pass) with its peak memory."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, mesh as pmesh, steps
+    from repro_torch.launch import shardings as sh
+    cfg = get_arch(REAL_ARCH)
+    pol = sh.ShardingPolicy(batch_axes=("data",))
+    shapes = real_shapes()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = pmesh.make_host_mesh(1, 1, device=CARD)
+        gen = torch.Generator(device=CARD).manual_seed(17)
+
+        def timed(mode, res):
+            fn, args = res["built"]["fn"], res["args"]
+            shape = shapes[mode]
+
+            def call():
+                with dryrun.step_context(shape, mesh, pol):
+                    return fn(*args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(REAL_REPS):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            ms = 1e3 * statistics.median(times)
+            flops = res["record"]["flops_corrected"]
+            r = {"ms": ms, "flops": flops,
+                 "tflops_s": flops / (ms * 1e-3) / 1e12,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "fake_flops": fake_flops[mode],
+                 "redistributions": res["record"]["redistributions"]}
+            if flops != fake_flops[mode]:
+                raise AssertionError(f"real 17.2 {mode}: counted flops "
+                                     f"{flops} != the fake (1,1) dry run's "
+                                     f"{fake_flops[mode]}")
+            return r
+
+        def gap(got, want, label, launches, want_launches):
+            g = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            r = {"bit_equal": bool(torch.equal(got, want)), "max_abs": g,
+                 "rel": g / max(scale, 1e-30), "flash_launches": launches}
+            if r["rel"] > REAL_REL:
+                raise AssertionError(f"real 17.2 {label}: {g} against the "
+                                     f"mesh-free path (largest {scale})")
+            if launches != want_launches:
+                raise AssertionError(f"real 17.2 {label}: {launches} flash "
+                                     f"launches, not {want_launches}")
+            return r
+
+        # prefill
+        ops.reset_launches()
+        pre = dryrun.trace_step(cfg, shapes["prefill"], mesh, pol,
+                                device=CARD, fake=False, gen=gen)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["flash_attention"]
+        model = pre["built"]["model"]
+        params = pre["args"][0]
+        plain = steps.local_params(model, params)
+        tokens = pre["args"][1]["tokens"].to_local()
+        with torch.no_grad():
+            want, want_caches = model.prefill(plain, {"tokens": tokens})
+        out["prefill"] = gap(pre["outputs"][0].to_local(), want, "prefill",
+                             launches, cfg.n_layers)
+        del want
+        out["prefill"].update(timed("prefill", pre))
+        # one decode step against the prefill's cache
+        built = steps.build(cfg, shapes["decode"], mesh, pol)
+        ispec = built["in_specs"][2]
+        tok = torch.randint(0, 64, (1, 1), generator=gen, device=CARD,
+                            dtype=torch.int32)
+        batch = {"tokens": DTensor.from_local(
+                     tok, mesh, sh.to_placements(mesh, ispec["tokens"])),
+                 "pos": DTensor.from_local(
+                     torch.tensor(REAL_PREFILL, dtype=torch.int32,
+                                  device=CARD), mesh,
+                     [Replicate()] * mesh.ndim)}
+        ops.reset_launches()
+        dec = dryrun.trace_step(cfg, shapes["decode"], mesh, pol,
+                                device=CARD, fake=False,
+                                args=[params, pre["outputs"][1], batch])
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            want, _ = model.decode_step(plain, tok, want_caches,
+                                        REAL_PREFILL)
+        out["decode"] = gap(dec["outputs"][0].to_local(), want, "decode",
+                            launches, 0)
+        del want, want_caches, pre
+        out["decode"].update(timed("decode", dec))
+        del dec
+        # one train step
+        ops.reset_launches()
+        tr = dryrun.trace_step(cfg, shapes["train"], mesh, pol,
+                               device=CARD, fake=False, gen=gen)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["flash_attention"]
+        # the plain loss with its params requiring grad, as in the step:
+        # attention then takes the chunked softmax there too
+        tplain = steps.local_params(tr["built"]["model"], tr["args"][0],
+                                    requires_grad=True)
+        b = {k: v.to_local() for k, v in tr["args"][3].items()}
+        want, _ = tr["built"]["model"].loss(tplain, b)
+        want = want.detach()
+        del tplain
+        out["train"] = gap(tr["outputs"][3]["loss"].to_local(), want,
+                           "train loss", launches, 0)
+        out["train"]["loss"] = float(want)
+        out["train"].update(timed("train", tr))
+        del tr
+    finally:
+        dist.destroy_process_group()
+    for mode, r in out.items():
+        log(f"real 17.2 {REAL_ARCH} {mode} {shapes[mode].global_batch} x "
+            f"{shapes[mode].seq_len}: flash launches {r['flash_launches']}"
+            f", bit-equal to the mesh-free path {r['bit_equal']} (max abs "
+            f"{r['max_abs']:.3e}, rel {r['rel']:.3e}), flops "
+            f"{r['flops']:.6e} (fake (1,1) dry run {r['fake_flops']:.6e}), "
+            f"ms {r['ms']:.3f}, TFLOP/s {r['tflops_s']:.2f}, peak_mem_gb "
+            f"{r['peak_gb']:.3f}, redistributions {r['redistributions']} "
+            f"| {smi}")
+    return out
+
+
+def dry_run() -> dict:
+    """Phase 17: the dry run (17.1) and its three steps run for real on
+    the card (17.2).  Returns {"dryrun", "real"}; the flash launches of
+    17.2's prefill, decode and train under ``"real"``."""
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    recs = dry_run_combos(smi)
+    log(f"dryrun 17.1 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fake = fake_one_device_flops()
+    real = real_steps(smi, fake)
+    log(f"real 17.2 took {time.perf_counter() - t0:.1f} s")
+    return {"dryrun": recs, "real": real}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5011,6 +5339,14 @@ def main() -> int:
     log(f"launches of flash_attention on the LM family paths: "
         f"{fam_launches}; phase 16 took {time.perf_counter() - t0:.1f} s")
 
+    # the dry run and its three steps for real: counts zeroed just before
+    # each of 17.2's traced steps and read just after it
+    t0 = time.perf_counter()
+    dry = dry_run()
+    real_launches = {k: r["flash_launches"] for k, r in dry["real"].items()}
+    log(f"launches of flash_attention on the dry run's real steps: "
+        f"{real_launches}; phase 17 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "kernel_ms", "shape")
@@ -5031,7 +5367,8 @@ def main() -> int:
             **({"mesh_launches": mesh_launches[name]}
                if name in mesh_launches else {}),
             **({"train_launches": train_launches[name],
-                "family_launches": fam_launches}
+                "family_launches": fam_launches,
+                "dryrun_real_launches": real_launches}
                if name == "flash_attention" else {}),
             **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()

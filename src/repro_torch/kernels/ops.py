@@ -612,6 +612,46 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
+    """:func:`flash_attention` as a PyTorch op, (B,H,T,d) -> (B,H,T,d):
+    the same dispatch (the kernel on the card, the plain version on the
+    CPU), its result written into a (B,T,H,d) buffer and returned as the
+    (B,H,T,d) view of it, so ``.transpose(1, 2)`` of the result is a
+    contiguous (B,T,H,d) tensor.  As an op it has a fake version (shapes
+    and dtype, for a fake tensor) and a FLOP formula
+    (:func:`flash_flops`)."""
+    B, H, T, d = q.shape
+    out = torch.empty((B, T, H, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    return flash_attention(q, k, v, causal=causal, out=out)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal):
+    B, H, T, d = q.shape
+    return q.new_empty((B, T, H, d)).transpose(1, 2)
+
+
+FLASH_OP = torch.ops.repro_torch.flash_attention
+
+
+def flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+                **kwargs) -> int:
+    """FLOPs of one flash call: the two products, 2 * d multiply-adds a
+    (query, key) pair each, over the pairs it computes: T * (T + 1) / 2
+    a head under ``causal`` (the mask's half), T * T in full mode."""
+    B, H, T, d = q_shape
+    pairs = T * (T + 1) // 2 if causal else T * T
+    return 4 * B * H * d * pairs
+
+
+from torch.utils.flop_counter import register_flop_formula  # noqa: E402
+
+register_flop_formula(FLASH_OP)(flash_flops)
+
+
 dispatch.CUDA_IMPLS.update({
     "stump_scan": _stump_scan_cuda,
     "stump_scan_batched": _stump_scan_batched_cuda,

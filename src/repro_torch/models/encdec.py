@@ -42,6 +42,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (
     cross_entropy, dense_init, embed_apply, embed_init, lm_head_apply,
     mlp_apply, mlp_init, rms_norm, rms_norm_init)
+from repro_torch.sharding_ctx import constrain, follow, settle
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -120,20 +121,26 @@ def init_params(gen, cfg: ArchConfig, dtype=F32, device="cpu") -> EncDec:
 # encoder
 # ---------------------------------------------------------------------------
 
+def _bidir_core(q, k, v):
+    T = q.shape[1]
+    if attn_mod._records_grad(q, k, v):
+        attn_mod.ROUTES["chunked_grad"] += 1
+        positions = torch.arange(T, dtype=torch.int32, device=q.device)
+        return attn_mod._sdpa_chunked(q, k, v, positions, positions,
+                                      causal=False, window=0, attn_cap=0.0)
+    attn_mod.ROUTES["flash"] += 1
+    return attn_mod._flash(q, k, v, causal=False)
+
+
 def _bidir_attn(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Non-causal self-attention (encoder), positions arange(T): the flash
     kernel's full mode outside autograd, the chunked softmax under it."""
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
     q, k, v = attn_mod._project_qkv(p, x, cfg, positions, rope=False)
-    if attn_mod._records_grad(q, k, v):
-        attn_mod.ROUTES["chunked_grad"] += 1
-        out = attn_mod._sdpa_chunked(q, k, v, positions, positions,
-                                     causal=False, window=0, attn_cap=0.0)
-    else:
-        attn_mod.ROUTES["flash"] += 1
-        out = attn_mod._flash(q, k, v, causal=False)
-    return out.reshape(B, T, cfg.n_heads * cfg.resolved_head_dim) @ p.wo
+    out = attn_mod.attention_region(
+        _bidir_core, q, k, v, seq_core=attn_mod.chunked_core(False))
+    return settle(attn_mod.merge_heads(out, p.wo) @ p.wo, None)
 
 
 def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig
@@ -145,7 +152,7 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
         x = x + _bidir_attn(lp.attn, h, cfg)
         h = rms_norm(x, lp.norm2, cfg.norm_eps)
-        x = x + mlp_apply(lp.mlp, h, cfg.act)
+        x = constrain(x + mlp_apply(lp.mlp, h, cfg.act), "btd")
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -157,20 +164,24 @@ def _cross_attn(p, x: torch.Tensor, enc_kv, cfg: ArchConfig) -> torch.Tensor:
     """x: (B,T,D); enc_kv: the encoder's (k, v), each (B,S_enc,H,hd)."""
     B, T, _ = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, T, h, hd)
-    k, v = enc_kv
-    tq = torch.arange(T, dtype=torch.int32, device=x.device)
-    tk = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-    out = attn_mod._sdpa_chunked(q, k, v, tq, tk, causal=False, window=0,
-                                 attn_cap=0.0)
-    return out.reshape(B, T, h * hd) @ p["wo"]
+    q = attn_mod.split_heads(x @ p["wq"], h, hd)
+    out = attn_mod.attention_region(
+        _cross_core, q, *enc_kv, seq_core=attn_mod.chunked_core(False))
+    return settle(attn_mod.merge_heads(out, p["wo"]) @ p["wo"], None)
+
+
+def _cross_core(q, k, v):
+    tq = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    tk = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+    return attn_mod._sdpa_chunked(q, k, v, tq, tk, causal=False, window=0,
+                                  attn_cap=0.0)
 
 
 def enc_kv(params_layer, enc_out: torch.Tensor, cfg: ArchConfig):
     B, S, _ = enc_out.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
-    k = (enc_out @ params_layer["wk"]).reshape(B, S, h, hd)
-    v = (enc_out @ params_layer["wv"]).reshape(B, S, h, hd)
+    k = attn_mod.split_heads(enc_out @ params_layer["wk"], h, hd)
+    v = attn_mod.split_heads(enc_out @ params_layer["wv"], h, hd)
     return k, v
 
 
@@ -181,7 +192,7 @@ def _dec_block(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor,
     h = rms_norm(x, lp.norm_x, cfg.norm_eps)
     x = x + _cross_attn(lp.xattn, h, enc_kv(lp.xattn, enc_out, cfg), cfg)
     h = rms_norm(x, lp.norm2, cfg.norm_eps)
-    return x + mlp_apply(lp.mlp, h, cfg.act)
+    return constrain(x + mlp_apply(lp.mlp, h, cfg.act), "btd")
 
 
 def _logits(params: EncDec, x: torch.Tensor, cfg: ArchConfig):
@@ -202,8 +213,8 @@ def forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor,
                            use_reentrant=False)
         else:
             x = _dec_block(lp, x, enc_out, cfg)
-    return _logits(params, x, cfg), torch.zeros((), dtype=F32,
-                                                device=x.device)
+    return constrain(_logits(params, x, cfg), "btv"), follow(
+        torch.zeros((), dtype=F32, device=x.device), x)
 
 
 def loss_fn(params: EncDec, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -251,7 +262,7 @@ def prefill(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor,
         h = rms_norm(x, lp.norm_x, cfg.norm_eps)
         x = x + _cross_attn(lp.xattn, h, (ck, cv), cfg)
         h = rms_norm(x, lp.norm2, cfg.norm_eps)
-        x = x + mlp_apply(lp.mlp, h, cfg.act)
+        x = constrain(x + mlp_apply(lp.mlp, h, cfg.act), "btd")
         caches["self"].append(self_c)
         caches["cross"].append({"k": ck.to(BF16), "v": cv.to(BF16)})
     return _logits(params, x[:, -1], cfg), caches
@@ -272,5 +283,5 @@ def decode_step(params: EncDec, tokens: torch.Tensor, caches: Caches,
         h = rms_norm(x, lp.norm_x, cfg.norm_eps)
         x = x + _cross_attn(lp.xattn, h, (cross_c["k"], cross_c["v"]), cfg)
         h = rms_norm(x, lp.norm2, cfg.norm_eps)
-        x = x + mlp_apply(lp.mlp, h, cfg.act)
+        x = constrain(x + mlp_apply(lp.mlp, h, cfg.act), "btd")
     return _logits(params, x[:, 0], cfg), caches

@@ -34,6 +34,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense_init, rms_norm, rms_norm_init
+from repro_torch.sharding_ctx import (
+    _PartialSum, current, is_dtensor, local_region, placements_for, settle)
 
 F32 = torch.float32
 State = Dict[str, torch.Tensor]
@@ -98,19 +100,100 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b
 
 
+def _products(p, x: torch.Tensor):
+    """x: (B,T,D) -> the in-projections z, x, B, C and dt's f32 logits."""
+    return (x @ p["wz"], x @ p["wx"], x @ p["wB"], x @ p["wC"],
+            (x @ p["wdt"]).to(F32))
+
+
+def _xbc_dt(xin, Bp, Cp, dt_logit, dt_bias):
+    return torch.cat([xin, Bp, Cp], dim=-1), _softplus(dt_logit + dt_bias)
+
+
 def _project(p, x: torch.Tensor, cfg: ArchConfig):
     """x: (B,T,D) -> z, the conv input xBC, and dt (f32)."""
-    z = x @ p["wz"]
-    xin = x @ p["wx"]
-    Bp = x @ p["wB"]
-    Cp = x @ p["wC"]
-    dt = _softplus((x @ p["wdt"]).to(F32) + p["dt_bias"])
-    return z, torch.cat([xin, Bp, Cp], dim=-1), dt
+    z, xin, Bp, Cp, dt_logit = _products(p, x)
+    return (z,) + _xbc_dt(xin, Bp, Cp, dt_logit, p["dt_bias"])
+
+
+_LEAVES = ("dt_bias", "conv_w", "conv_b", "A_log", "D", "norm")
+
+
+class HeadShard:
+    """One device's share of a Mamba layer's heads under a mesh: ``rank``
+    of ``n`` along the model axis, ``group`` its collectives' group.  The
+    core cuts the conv's x channels to its heads (the B and C channels,
+    shared by every head, stay whole), sums the gated norm's squares over
+    the group, and gathers the conv state's x channels back whole."""
+
+    def __init__(self, rank: int, n: int, group):
+        self.rank, self.n, self.group = rank, n, group
+
+    def conv_cut(self, w: torch.Tensor, di_loc: int) -> torch.Tensor:
+        """A conv-channel tensor (..., di + 2N) cut to this device's x
+        channels followed by every B and C channel."""
+        di = di_loc * self.n
+        lo = self.rank * di_loc
+        return torch.cat([w[..., lo:lo + di_loc], w[..., di:]], dim=-1)
+
+    def conv_whole(self, state: torch.Tensor, di_loc: int) -> torch.Tensor:
+        """A conv state (B, k-1, di_loc + 2N) with the x channels of every
+        device gathered in order."""
+        from repro_torch.models.moe import _all_gather
+        x = _all_gather(state[..., :di_loc].contiguous(), state.dim() - 1,
+                        self.group)
+        return torch.cat([x, state[..., di_loc:]], dim=-1)
+
+    def norm(self, v: torch.Tensor, weight: torch.Tensor, eps: float):
+        """:func:`rms_norm` over the whole d_inner of which ``v`` holds
+        this device's slice: its sum of squares is summed over the
+        group."""
+        dtype = v.dtype
+        v = v.to(F32)
+        ss = _PartialSum.apply(torch.sum(torch.square(v), dim=-1,
+                                         keepdim=True), self.group)
+        v = v * torch.rsqrt(ss / (v.shape[-1] * self.n) + eps)
+        return (v * (1.0 + weight.to(F32))).to(dtype)
+
+
+def _mixer(core, p, x: torch.Tensor, cfg: ArchConfig, *state):
+    """``core(z, xin, Bp, Cp, dt_logit, *leaves, *state, shard)`` after the
+    in-projections.  On DTensors the projections stay sharded products
+    and the core (conv, SSD scan, gated norm) runs on each device's batch
+    rows (``local_region``) and, where the heads divide the model axis,
+    on its heads (``shard`` a :class:`HeadShard`; else None and the
+    heads whole on every device).  Its outputs: y split over d_inner as
+    the heads are, the SSM state by heads, the conv state whole."""
+    args = _products(p, x) + tuple(p[k] for k in _LEAVES) + state
+    if not is_dtensor(x):
+        return core(*args, None)
+    ctx = current()
+    b, m = ctx["batch"], ctx["model"]
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    n = mesh.shape[names.index(m)]
+    nh = cfg.mamba.n_heads(cfg.d_model)
+    split = n > 1 and nh % n == 0
+    h = m if split else None
+    # z, x, B, C, dt; dt_bias, conv_w, conv_b, A_log, D, norm; ssm, conv
+    specs = ((b, None, h), (b, None, h), (b, None, None), (b, None, None),
+             (b, None, h), (h,), (None, None), (None,), (h,), (h,), (h,),
+             (b, h, None, None), (b, None, None))
+    ssm_pl = placements_for(mesh, (x.shape[0], nh, cfg.mamba.head_dim,
+                                   cfg.mamba.d_state), specs[11])
+    shard = (HeadShard(mesh.get_local_rank(names.index(m)), n,
+                       (mesh, names.index(m))) if split else None)
+    return local_region(lambda *a: core(*a, shard),
+                        tuple(None if a is None else sp
+                              for a, sp in zip(args, specs)),
+                        (0, ssm_pl, 2), *args)
 
 
 def _split_conv(xbc: torch.Tensor, cfg: ArchConfig):
-    mc, d, di, nh, hd, N = _dims(cfg)
-    xin, Bp, Cp = torch.split(xbc, [di, N, N], dim=-1)
+    """xBC -> silu(x), B, C; x is every channel before the last 2N (all of
+    d_inner, or one device's heads of it)."""
+    N = cfg.mamba.d_state
+    xin, Bp, Cp = torch.split(xbc, [xbc.shape[-1] - 2 * N, N, N], dim=-1)
     return F.silu(xin), Bp, Cp
 
 
@@ -155,8 +238,9 @@ def _ssd(xin, Bp, Cp, dt, A, D, cfg: ArchConfig, h0=None):
     """xin: (B,T,di) post-conv; returns (y: (B,T,di), h_final: (B,H,P,N)).
     The chunk length is ``cfg.mamba.chunk`` (at most T), halved until it
     divides T."""
-    mc, d, di, nh, hd, N = _dims(cfg)
-    B, T, _ = xin.shape
+    mc, hd, N = cfg.mamba, cfg.mamba.head_dim, cfg.mamba.d_state
+    B, T, di = xin.shape
+    nh = di // hd               # all heads, or one device's
     L = min(mc.chunk, T)
     while T % L != 0:
         L //= 2
@@ -179,24 +263,37 @@ def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, h0=None, conv0=None):
     final state, and the last k-1 rows of the pre-conv xBC (left-padded
     with zeros when T < k-1).  ``h0`` and ``conv0`` continue from a carried
     state."""
-    mc, d, di, nh, hd, N = _dims(cfg)
-    z, xbc, dt = _project(p, x, cfg)
-    if conv0 is not None:
-        xbc_in = torch.cat([conv0, xbc], dim=1)
-        conv_out = _causal_conv(xbc_in, p["conv_w"],
-                                p["conv_b"])[:, conv0.shape[1]:]
-    else:
-        conv_out = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xin, Bp, Cp = _split_conv(conv_out, cfg)
-    A = -torch.exp(p["A_log"])
-    y, h = _ssd(xin, Bp, Cp, dt, A, p["D"], cfg, h0)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["wo"]
-    k = mc.d_conv
-    T = xbc.shape[1]
-    conv_state = (xbc[:, T - (k - 1):] if T >= k - 1
-                  else F.pad(xbc, (0, 0, k - 1 - T, 0)))
-    return out, {"ssm": h, "conv": conv_state}
+    def core(z, xin, Bp, Cp, dt_logit, dt_bias, conv_w, conv_b, A_log, D,
+             norm, h0, conv0, shard):
+        di_loc = xin.shape[-1]
+        if shard is not None:
+            conv_w, conv_b = (shard.conv_cut(conv_w, di_loc),
+                              shard.conv_cut(conv_b, di_loc))
+            if conv0 is not None:
+                conv0 = shard.conv_cut(conv0, di_loc)
+        xbc, dt = _xbc_dt(xin, Bp, Cp, dt_logit, dt_bias)
+        if conv0 is not None:
+            xbc_in = torch.cat([conv0, xbc], dim=1)
+            conv_out = _causal_conv(xbc_in, conv_w,
+                                    conv_b)[:, conv0.shape[1]:]
+        else:
+            conv_out = _causal_conv(xbc, conv_w, conv_b)
+        xin, Bp, Cp = _split_conv(conv_out, cfg)
+        A = -torch.exp(A_log)
+        y, h = _ssd(xin, Bp, Cp, dt, A, D, cfg, h0)
+        gated = y * F.silu(z)
+        y = (rms_norm(gated, norm, cfg.norm_eps) if shard is None
+             else shard.norm(gated, norm, cfg.norm_eps))
+        k = cfg.mamba.d_conv
+        T = xbc.shape[1]
+        conv_state = (xbc[:, T - (k - 1):] if T >= k - 1
+                      else F.pad(xbc, (0, 0, k - 1 - T, 0)))
+        if shard is not None:
+            conv_state = shard.conv_whole(conv_state, di_loc)
+        return y, h, conv_state
+
+    y, h, conv_state = _mixer(core, p, x, cfg, h0, conv0)
+    return settle(y @ p["wo"], None), {"ssm": h, "conv": conv_state}
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, dtype=F32, device="cpu"
@@ -211,23 +308,40 @@ def mamba_decode(p, x: torch.Tensor, state: State, cfg: ArchConfig):
     """One-token decode.  x: (B,1,D).  Returns (out (B,1,D), new state);
     the conv is an f32 product over the window of the carried k-1 rows and
     the new one."""
-    mc, d, di, nh, hd, N = _dims(cfg)
-    B = x.shape[0]
-    z, xbc, dt = _project(p, x, cfg)                       # T = 1
-    window = torch.cat([state["conv"], xbc[:, :1]], dim=1)  # (B,k,Cd)
-    conv_out = torch.einsum("bkc,kc->bc", window.to(F32),
-                            p["conv_w"].to(F32)) + p["conv_b"].to(F32)
-    xin, Bp, Cp = _split_conv(conv_out[:, None].to(x.dtype), cfg)
-    xh = xin[:, 0].reshape(B, nh, hd).to(F32)
-    Bv = Bp[:, 0].to(F32)                                  # (B,N)
-    Cv = Cp[:, 0].to(F32)
-    dt1 = dt[:, 0]                                         # (B,H)
+    hd = cfg.mamba.head_dim
 
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt1 * A)                                # (B,H)
-    upd = dt1[:, :, None, None] * xh[:, :, :, None] * Bv[:, None, None, :]
-    h1 = dA[:, :, None, None] * state["ssm"] + upd         # (B,H,P,N)
-    y = torch.einsum("bhpn,bn->bhp", h1, Cv) + p["D"][None, :, None] * xh
-    y = y.reshape(B, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["wo"], {"ssm": h1, "conv": window[:, 1:]}
+    def core(z, xin, Bp, Cp, dt_logit, dt_bias, conv_w, conv_b, A_log, D,
+             norm, ssm, conv, shard):
+        B = z.shape[0]
+        di_loc = xin.shape[-1]
+        nh_loc = di_loc // hd
+        if shard is not None:
+            conv_w, conv_b, conv = (shard.conv_cut(t, di_loc)
+                                    for t in (conv_w, conv_b, conv))
+        xbc, dt = _xbc_dt(xin, Bp, Cp, dt_logit, dt_bias)      # T = 1
+        window = torch.cat([conv, xbc[:, :1]], dim=1)          # (B,k,Cd)
+        conv_out = torch.einsum("bkc,kc->bc", window.to(F32),
+                                conv_w.to(F32)) + conv_b.to(F32)
+        xin, Bp, Cp = _split_conv(conv_out[:, None].to(z.dtype), cfg)
+        xh = xin[:, 0].reshape(B, nh_loc, hd).to(F32)
+        Bv = Bp[:, 0].to(F32)                                  # (B,N)
+        Cv = Cp[:, 0].to(F32)
+        dt1 = dt[:, 0]                                         # (B,H)
+
+        A = -torch.exp(A_log)
+        dA = torch.exp(dt1 * A)                                # (B,H)
+        upd = (dt1[:, :, None, None] * xh[:, :, :, None]
+               * Bv[:, None, None, :])
+        h1 = dA[:, :, None, None] * ssm + upd                  # (B,H,P,N)
+        y = torch.einsum("bhpn,bn->bhp", h1, Cv) + D[None, :, None] * xh
+        y = y.reshape(B, 1, di_loc).to(z.dtype)
+        gated = y * F.silu(z)
+        y = (rms_norm(gated, norm, cfg.norm_eps) if shard is None
+             else shard.norm(gated, norm, cfg.norm_eps))
+        new_conv = window[:, 1:]
+        if shard is not None:
+            new_conv = shard.conv_whole(new_conv, di_loc)
+        return y, h1, new_conv
+
+    y, h1, conv = _mixer(core, p, x, cfg, state["ssm"], state["conv"])
+    return settle(y @ p["wo"], None), {"ssm": h1, "conv": conv}

@@ -6,10 +6,20 @@ softmax router, top-k by k argmax passes), the same per-row capacity
 (``capacity``), the same dispatch into an (E, C, D) buffer per row with
 overflow slots dropped, the dense per-expert SwiGLU/GeGLU over that
 buffer, the gate-weighted combine and the Switch load-balance aux loss.
-The reference's ``tensor_sm`` ``shard_map`` branch runs only under a
-multi-device mesh context; without one (and a single card has none) it
-takes the ``dense_path`` ported here.  Its ``constrain`` anchors are
-no-ops without a mesh and are dropped.
+
+On DTensors under a mesh context (``sharding_ctx``) the layer pins its
+activations where the reference does (``constrain``: the router's
+probabilities, the gates and picks, the dispatch intermediates, the
+expert output, the layer's output) and runs the steps DTensor has no rule
+for (the argmax passes, the dispatch scatter, the aux loss's one-hot, the
+combine) on each device's batch rows (``local_region``): every row is
+routed and dispatched on the device that holds it, as the reference's
+per-row vmap is.  ``moe.sharding == "tensor_sm"`` is the reference's
+``shard_map`` branch (:func:`_expert_tensor_sm`): the expert products run
+on the local weight shards, the FSDP all-gathers are explicit, and the
+down projection's partial sums are cast to the activation dtype before
+the all-reduce over the model axis.  Without a mesh every branch takes
+the ``dense_path`` as before.
 
 The params are an ``nn.ParameterDict`` keyed ``router`` (D, E), always
 f32, ``w_gate`` and ``w_up`` (E, D, F) and ``w_down`` (E, F, D), as the
@@ -28,6 +38,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding_ctx import (
+    _AllReduceSum, constrain, current, is_dtensor, local_region, settle)
 
 F32 = torch.float32
 
@@ -120,23 +132,112 @@ def _dispatch_row(x_row: torch.Tensor, expert_idx: torch.Tensor,
     return keep[0], dst[0], tok, xe[0]
 
 
-def _expert_compute(p, xe: torch.Tensor, act: str) -> torch.Tensor:
+def _swiglu(xe, wg, wu, wd, act: str) -> torch.Tensor:
+    g = torch.einsum("becd,edf->becf", xe, wg)
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    u = torch.einsum("becd,edf->becf", xe, wu)
+    return torch.einsum("becf,efd->becd", g * u, wd)
+
+
+def _expert_compute(p, xe: torch.Tensor, act: str,
+                    m: Optional[MoEConfig] = None) -> torch.Tensor:
     """(B,E,C,D) -> (B,E,C,D) through the per-expert SwiGLU (``gelu`` is
     the tanh form, as ``jax.nn.gelu`` computes it by default): the
-    reference's ``dense_path``."""
-    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
-    return torch.einsum("becf,efd->becd", g * u, p["w_down"])
+    reference's ``dense_path``, or under a mesh context with
+    ``m.sharding == "tensor_sm"`` its ``shard_map`` branch."""
+    if (m is not None and m.sharding == "tensor_sm" and is_dtensor(xe)
+            and current() is not None):
+        return _expert_tensor_sm(p, xe, act)
+    return constrain(_swiglu(xe, p["w_gate"], p["w_up"], p["w_down"], act),
+                     "b4")
+
+
+def _stored(p, name: str):
+    """A param as stored (its shard), past an FSDP gather that reads it
+    (``launch.steps.Unshard``)."""
+    if hasattr(p, "parametrizations") and name in p.parametrizations:
+        return p.parametrizations[name].original
+    return p[name]
+
+
+def _all_gather(w, dim, group):
+    from torch.distributed import _functional_collectives as funcol
+    fn = getattr(funcol, "all_gather_single_autograd",
+                 None) or funcol.all_gather_tensor_autograd
+    return fn(w, dim, group)
+
+
+def _expert_tensor_sm(p, xe, act: str):
+    """The reference's ``tensor_sm`` branch on local shards: xe's batch
+    rows on each device, gate/up (E, D -> fsdp, F -> model), down (E,
+    F -> model, D -> fsdp).  The FSDP all-gathers over the fsdp axis are
+    explicit, and the down projection's partial is cast to the activation
+    dtype BEFORE the all-reduce over the model axis: a bf16 all-reduce,
+    not f32."""
+    from torch.distributed import _functional_collectives as funcol
+    ctx = current()
+    mesh = xe.device_mesh
+    names = list(mesh.mesh_dim_names)
+    model_ax, fsdp_ax, batch_ax = ctx["model"], ctx.get("fsdp"), ctx["batch"]
+
+    def gather(w, dim):
+        if fsdp_ax is None:
+            return w
+        return _all_gather(
+            w, dim, (mesh, names.index(fsdp_ax)))
+
+    def expert_body(xe_l, wg_l, wu_l, wd_l):
+        wg_l, wu_l, wd_l = gather(wg_l, 1), gather(wu_l, 1), gather(wd_l, 2)
+        ye_part = _swiglu(xe_l, wg_l, wu_l, wd_l, act).to(xe_l.dtype)
+        return _AllReduceSum.apply(ye_part, [(mesh, names.index(model_ax))])
+
+    w_gu = (None, fsdp_ax, model_ax)
+    w_d = (None, model_ax, fsdp_ax)
+    xe_spec = (batch_ax, None, None, None)
+    return local_region(expert_body, (xe_spec, w_gu, w_gu, w_d), (0,), xe,
+                        _stored(p, "w_gate"), _stored(p, "w_up"),
+                        _stored(p, "w_down"))
+
+
+def _batch_region(fn, n_out: int, *args):
+    """``fn`` on each device's batch rows (dim 0 over the context's batch
+    axes, every other dim whole); its ``n_out`` outputs keep that
+    layout.  Plain tensors: ``fn`` as is."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    b = current()["batch"]
+    return local_region(fn, tuple((b,) + (None,) * (a.dim() - 1)
+                                  for a in args), (0,) * n_out, *args)
+
+
+def _topk_gates(probs: torch.Tensor, k: int):
+    gate_vals, expert_idx = _topk_iterative(probs, k)
+    gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
+    return gate_vals, expert_idx
 
 
 def route(p, x: torch.Tensor, m: MoEConfig):
     """(probs (B,T,E) f32, normalized gates (B,T,K) f32, expert_idx
     (B,T,K) int32) from the f32 router."""
-    probs = torch.softmax(x.to(F32) @ p["router"], dim=-1)
-    gate_vals, expert_idx = _topk_iterative(probs, m.top_k)
-    gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
-    return probs, gate_vals, expert_idx
+    probs = constrain(torch.softmax(x.to(F32) @ p["router"], dim=-1), "b3")
+    gate_vals, expert_idx = _batch_region(
+        lambda pr: _topk_gates(pr, m.top_k), 2, probs)
+    return probs, constrain(gate_vals, "b3"), constrain(expert_idx, "b3")
+
+
+def _combine(ye, keep, dst, gate_vals, K: int) -> torch.Tensor:
+    """The gate-weighted sum over each token's K expert slots: ye (B,E,C,D),
+    keep and dst (B, T*K), gates (B,T,K) -> (B,T,D)."""
+    B, E, C, D = ye.shape
+    TK = dst.shape[1]
+    yf = ye.reshape(B, E * C, D)
+    picked = torch.gather(yf, 1, torch.clamp(dst, max=E * C - 1)[..., None]
+                          .expand(B, TK, D))
+    picked = torch.where(keep[..., None], picked, 0.0)
+    contrib = picked * gate_vals.reshape(B, TK, 1).to(ye.dtype)
+    # each token's K contributions are contiguous (tok repeats arange(T)
+    # K times): a sum over K, not an atomic scatter-add
+    return contrib.view(B, TK // K, K, D).sum(2)
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, act: str = "silu",
@@ -160,20 +261,24 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, act: str = "silu",
                                  + 1e-9)
     else:
         expert_idx = own_idx
-    keep, dst, tok, xe = _dispatch(x, expert_idx, m, C)
+    keep, dst, xe = _batch_region(
+        lambda x, i: _keep_dst_xe(x, i, m, C), 3, x, expert_idx)
+    keep, dst, xe = constrain(keep, "b2"), constrain(dst, "b2"), \
+        constrain(xe, "b4")
 
     # load-balance auxiliary loss (Switch eq. 4), global over the batch
-    me = torch.mean(probs.reshape(-1, E), dim=0)
-    ce = torch.mean(torch.sum(F.one_hot(expert_idx.reshape(-1, K).long(),
-                                        E).to(F32), dim=1), dim=0)
+    me = settle(torch.mean(probs.reshape(-1, E), dim=0), None)
+    hits = _batch_region(lambda i: F.one_hot(i.reshape(-1, K).long(),
+                                             E).to(F32), 1, expert_idx)
+    ce = settle(torch.mean(torch.sum(hits, dim=1), dim=0), None)
     aux = m.aux_loss_coef * E * torch.sum(me * ce)
 
-    ye = _expert_compute(p, xe, act)                       # (B,E,C,D)
-    yf = ye.reshape(B, E * C, D)
-    picked = torch.gather(yf, 1, torch.clamp(dst, max=E * C - 1)[..., None]
-                          .expand(B, T * K, D))
-    picked = torch.where(keep[..., None], picked, 0.0)
-    contrib = picked * gate_vals.reshape(B, T * K, 1).to(ye.dtype)
-    # each token's K contributions are contiguous (tok repeats arange(T)
-    # K times): a sum over K, not an atomic scatter-add
-    return contrib.view(B, T, K, D).sum(2), aux
+    ye = _expert_compute(p, xe, act, m)                    # (B,E,C,D)
+    out = _batch_region(lambda *a: _combine(*a, K), 1, ye, keep, dst,
+                        gate_vals)
+    return constrain(out, "btd"), aux
+
+
+def _keep_dst_xe(x, expert_idx, m: MoEConfig, cap: int):
+    keep, dst, _, xe = _dispatch(x, expert_idx, m, cap)
+    return keep, dst, xe

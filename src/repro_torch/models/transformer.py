@@ -22,8 +22,12 @@ block (``models/mamba.py``); its MLP, where it has one (``cfg.d_ff > 0``
 or an MoE layer, as the reference's ``_layer_init`` decides), is dense or
 an MoE (``models/moe.py``), whose load-balance aux loss ``forward`` sums
 over layers and ``prefill``/``decode_step`` drop.  A Mamba layer's cache
-is its state dict {ssm, conv}.  The reference's ``sharding_ctx.constrain``
-is a no-op without a mesh and is dropped.
+is its state dict {ssm, conv}.
+
+On DTensor params under a mesh context (the dry run) the stack pins its
+activations with ``sharding_ctx.constrain`` where the reference does: the
+embedding output, the carry after each pattern period and the logits.
+Without a context those calls return their argument.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     cross_entropy, dense_init, embed_apply, embed_init, lm_head_apply,
     mlp_apply, mlp_init, rms_norm, rms_norm_init)
+from repro_torch.sharding_ctx import constrain, follow
 
 F32 = torch.float32
 Cache = Dict[str, torch.Tensor]
@@ -152,7 +157,7 @@ def _period(blocks, cfg: ArchConfig, x: torch.Tensor, aux: torch.Tensor):
         x, a = _mlp_half(lp, x + h, cfg)
         if a is not None:
             aux = aux + a
-    return x, aux
+    return constrain(x, "btd"), aux
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
@@ -166,8 +171,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
     under ``torch.utils.checkpoint``: its activations are dropped and
     recomputed in the backward pass, as the reference's
     ``jax.checkpoint(period_body)`` does."""
-    x = embed_apply(params.embed, tokens)
-    aux = torch.zeros((), dtype=F32, device=x.device)
+    x = constrain(embed_apply(params.embed, tokens), "btd")
+    aux = follow(torch.zeros((), dtype=F32, device=x.device), x)
     p = cfg.pattern_period
     blocks = list(params.blocks)
     remat = remat and torch.is_grad_enabled()
@@ -178,7 +183,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, *,
                                 use_reentrant=False)
         else:
             x, aux = _period(period, cfg, x, aux)
-    return _head(params, x, cfg), aux
+    return constrain(_head(params, x, cfg), "btv"), aux
 
 
 def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
@@ -212,8 +217,9 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     pos: the count of tokens already in the caches.  Returns (logits
     (B,Vpad) f32, caches), the caches updated in place (a Mamba layer's
     dict takes its new state)."""
-    x = embed_apply(params.embed, tokens)
-    for lp, c in zip(params.blocks, caches):
+    x = constrain(embed_apply(params.embed, tokens), "btd")
+    p = cfg.pattern_period
+    for i, (lp, c) in enumerate(zip(params.blocks, caches)):
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
         if lp.mixer == MAMBA:
             h, st = mamba_mod.mamba_decode(lp.mamba, h, c, cfg)
@@ -222,7 +228,9 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
             h, _ = attn_mod.attn_decode(lp.attn, h, c, cfg, pos=pos,
                                         kind=lp.mixer)
         x, _ = _mlp_half(lp, x + h, cfg)
-    return _head(params, x[:, 0], cfg), caches
+        if (i + 1) % p == 0:
+            x = constrain(x, "btd")
+    return constrain(_head(params, x[:, 0], cfg), "bv"), caches
 
 
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
@@ -231,9 +239,10 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     caches sized for cache_seq (default T) further decode)."""
     T = tokens.shape[1]
     S = cache_seq or T
-    x = embed_apply(params.embed, tokens)
+    x = constrain(embed_apply(params.embed, tokens), "btd")
+    p = cfg.pattern_period
     caches = []
-    for lp in params.blocks:
+    for i, lp in enumerate(params.blocks):
         h = rms_norm(x, lp.norm1, cfg.norm_eps)
         if lp.mixer == MAMBA:
             h, c = mamba_mod.mamba_forward(lp.mamba, h, cfg)
@@ -241,5 +250,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
             h, c = attn_mod.attn_prefill(lp.attn, h, cfg, kind=lp.mixer,
                                          cache_seq=S)
         x, _ = _mlp_half(lp, x + h, cfg)
+        if (i + 1) % p == 0:
+            x = constrain(x, "btd")
         caches.append(c)
-    return _head(params, x[:, -1], cfg), caches
+    return constrain(_head(params, x[:, -1], cfg), "bv"), caches

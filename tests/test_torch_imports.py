@@ -46,7 +46,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
             "repro_torch.data.pipeline",
             "repro_torch.launch.train", "repro_torch.models.moe",
             "repro_torch.models.mamba",
-            "repro_torch.models.encdec"} <= set(mods)
+            "repro_torch.models.encdec", "repro_torch.sharding_ctx",
+            "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+            "repro_torch.launch.steps", "repro_torch.launch.cost_analysis",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.inspect_combo"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
