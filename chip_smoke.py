@@ -3978,6 +3978,9 @@ MESH_REFERENCE = json.loads("""
 """)
 MESH_INTS = ("buf_stamp", "buf_count", "ens_count", "counter", "last_sync",
              "sync_count")
+# 14.5: one paper domain and the largest K, run again through
+# ``fed_mesh._Group`` over a one-rank NCCL group on the card
+MESH_NCCL_RUNS = ("edge_vision", "mobile_x4")
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -4068,7 +4071,8 @@ def mesh_path():
     r-1 (``convert.fed_mesh_state_to_numpy`` and back).  (4) Each final
     ensemble published into a registry and 256 requests from the domain's
     test set answered through ``BatchEvaluator`` on the card and on the
-    CPU.  Returns the launches of (1)."""
+    CPU.  (5) Two of the runs again over a one-rank NCCL group
+    (:func:`mesh_nccl`).  Returns the launches of (1)."""
     from repro_torch.configs.paper_fedboost import FedBoostConfig
     from repro_torch.convert import (fed_mesh_state_from_numpy,
                                      fed_mesh_state_to_numpy)
@@ -4203,7 +4207,79 @@ def mesh_path():
             f"learners, {len(reqs)} requests through BatchEvaluator "
             f"({votes} vote launches), margins within {err:.3g} of the "
             f"CPU's ({rel:.3g} of 1 + |margin|; tol rtol/atol {MESH_TOL})")
+    mesh_nccl(runs, smi)
     return {k: launches[k] for k in kernels}
+
+
+def mesh_nccl(runs: dict, smi: str) -> None:
+    """14.5: ``MESH_NCCL_RUNS`` run again for their 80 rounds with
+    ``group=`` a one-rank NCCL process group on the card: every gather and
+    sum goes through ``fed_mesh._Group`` (``all_gather_into_tensor`` and
+    ``all_reduce`` over NCCL, on the path a group of four cards takes).
+    Each run's final state, leaf for leaf, is held bit-equal to the same
+    run's one-process state from 14.1, and its launches to that run's.
+    The group is started here and destroyed before this returns; a group
+    that does not start fails the phase (nothing falls back to gloo or the
+    CPU)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.convert import fed_mesh_state_to_numpy
+    from repro_torch.core import fed_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device(CARD, 0))
+    try:
+        group = dist.group.WORLD
+        if dist.get_backend(group) != "nccl":
+            raise AssertionError(f"mesh 14.5: backend "
+                                 f"{dist.get_backend(group)}, not nccl")
+        for name in MESH_NCCL_RUNS:
+            r = runs[name]
+            x, y, xv, yv, _ = r["data"]
+            cfg, K = r["cfg"], r["K"]
+            policy = KernelPolicy(env_var=None)
+            step = fed_mesh.make_fed_boost_step(cfg, r["thr"], group=group,
+                                                policy=policy)
+            s = fed_mesh.init_state(cfg, K, x.shape[1], xv.shape[1],
+                                    MESH_CAP, K * cfg.n_rounds, device=CARD)
+            before = dict(ops.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(cfg.n_rounds):
+                s = step(s, x, y, xv, yv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            L = {k: ops.LAUNCHES[k] - before[k] for k in r["launches"]}
+            got = fed_mesh_state_to_numpy(s)
+            want = fed_mesh_state_to_numpy(r["states"][-1])
+            for f, w in want.items():
+                g = got[f]
+                if g.dtype != w.dtype or g.shape != w.shape or (
+                        not same_bits(torch.from_numpy(np.ascontiguousarray(
+                            g)).reshape(-1), torch.from_numpy(
+                                np.ascontiguousarray(w)).reshape(-1))
+                        if w.dtype == np.float32 else
+                        not np.array_equal(g, w)):
+                    raise AssertionError(f"mesh 14.5 {name}: {f} is not "
+                                         f"bit-equal to 14.1's")
+            if L != r["launches"]:
+                raise AssertionError(f"mesh 14.5 {name}: launches {L}, "
+                                     f"14.1's {r['launches']}")
+            log(f"mesh 14.5 {name}: K={K} over a one-rank NCCL group "
+                f"({dist.get_backend(group)}, world "
+                f"{dist.get_world_size(group)}): {s.counter} rounds, "
+                f"syncs={s.sync_count} ens_count={s.ens_count} interval "
+                f"{float(s.interval)} val_err={float(s.prev_err):.6f}, "
+                f"every leaf of the final state ({len(want)}) bit-equal to "
+                f"14.1's one-process run; launches {L}; wall_s={wall:.4f} "
+                f"(14.1's {r['wall_s']:.4f}) | {smi}")
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------------ phase 15
@@ -4868,7 +4944,9 @@ def lm_families() -> dict:
 # ------------------------------------------------------------ phase 17
 DRYRUN_COMBOS = (("qwen1.5-0.5b", "train_4k", False, "baseline"),
                  ("qwen1.5-0.5b", "decode_32k", True, "baseline"),
-                 ("qwen3-moe-30b-a3b", "train_4k", False, "moe_bf16_psum"))
+                 ("qwen3-moe-30b-a3b", "train_4k", False, "moe_bf16_psum"),
+                 ("jamba-1.5-large-398b", "long_500k", False, "baseline"),
+                 ("whisper-base", "decode_32k", False, "baseline"))
 DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
 # The JAX package's dry run of DRYRUN_COMBOS on the CPU (jax 0.9.0, 512
 # placeholder devices), from
@@ -4881,6 +4959,7 @@ DRYRUN_REFERENCE = json.loads("""
   "flops_corrected": 19955491799040.0,
   "argument_size_in_bytes": 11724804,
   "output_size_in_bytes": 11200896,
+  "output_leaves": 46,
   "collective_bytes_total": 52966709328.0,
   "collectives": {
    "all-gather": 197230592.0,
@@ -4888,8 +4967,8 @@ DRYRUN_REFERENCE = json.loads("""
    "all-to-all": 536870912.0,
    "collective-permute": 262144.0
   },
-  "compile_s": 1.14,
-  "wall_s": 3.1
+  "compile_s": 0.91,
+  "wall_s": 4.3
  },
  "qwen1.5-0.5b/decode_32k/pod2x16x16/baseline": {
   "status": "ok",
@@ -4897,14 +4976,15 @@ DRYRUN_REFERENCE = json.loads("""
   "flops_corrected": 1037238272.0,
   "argument_size_in_bytes": 809039892,
   "output_size_in_bytes": 805458328,
+  "output_leaves": 3,
   "collective_bytes_total": 116818176.0,
   "collectives": {
    "all-gather": 115998976.0,
    "all-reduce": 802816.0,
    "all-to-all": 16384.0
   },
-  "compile_s": 0.31,
-  "wall_s": 2.3
+  "compile_s": 0.27,
+  "wall_s": 3.2
  },
  "qwen3-moe-30b-a3b/train_4k/pod16x16/moe_bf16_psum": {
   "status": "ok",
@@ -4912,6 +4992,7 @@ DRYRUN_REFERENCE = json.loads("""
   "flops_corrected": 169378477768704.0,
   "argument_size_in_bytes": 723304452,
   "output_size_in_bytes": 722780520,
+  "output_leaves": 43,
   "collective_bytes_total": 1218638659664.0,
   "collectives": {
    "all-gather": 24794824704.0,
@@ -4920,11 +5001,85 @@ DRYRUN_REFERENCE = json.loads("""
    "all-to-all": 3489660928.0,
    "collective-permute": 3029598208.0
   },
-  "compile_s": 2.59,
-  "wall_s": 13.9
+  "compile_s": 1.98,
+  "wall_s": 20.3
+ },
+ "jamba-1.5-large-398b/long_500k/pod16x16/baseline": {
+  "status": "ok",
+  "n_devices": 256,
+  "flops_corrected": 10570170240.0,
+  "argument_size_in_bytes": 4356233000,
+  "output_size_in_bytes": 1241399336,
+  "output_leaves": 17,
+  "collective_bytes_total": 2816203584.0,
+  "collectives": {
+   "all-gather": 1439373824.0,
+   "all-reduce": 93242848.0,
+   "all-to-all": 2304.0,
+   "collective-permute": 1283584608.0
+  },
+  "compile_s": 1.42,
+  "wall_s": 6.2
+ },
+ "whisper-base/decode_32k/pod16x16/baseline": {
+  "status": "ok",
+  "n_devices": 256,
+  "flops_corrected": 370733056.0,
+  "argument_size_in_bytes": 211199012,
+  "output_size_in_bytes": 210646568,
+  "output_leaves": 5,
+  "collective_bytes_total": 3435485728.0,
+  "collectives": {
+   "all-gather": 3435084288.0,
+   "all-reduce": 311296.0,
+   "all-to-all": 53248.0,
+   "collective-permute": 36896.0
+  },
+  "compile_s": 0.45,
+  "wall_s": 3.1
  }
 }
 """)
+# What the JAX package's per-device FLOPs count beyond the port's, as
+# ``tools/dryrun_dot_breakdown.py`` accounts for them op by op (ROADMAP
+# C8) and ``tests/test_torch_dryrun_residuals.py`` pins them on the CPU,
+# worked out from the trace's own dot rows ([op, operand shapes, issuer,
+# count, flops]): less the matrix-vector products XLA's CPU compiler
+# leaves no ``dot`` for (:func:`matvec_flops`); plus, for Jamba
+# long_500k, XLA's P.V over the whole cache on every device of the idle
+# data axis where the port splits the q heads over it (15 more times the
+# port's), and for whisper decode_32k XLA's Q.K^T on whole heads, each on
+# 2 devices of the model axis, where the port splits the head dim (once
+# more the port's).  Every other combo: nothing.
+ATTN_ROWS = ("models/attention.py:_attend_row",
+             "models/attention.py:_sdpa_chunked")
+VEC_MATRIX = 1 << 24        # XLA rewrites a one-row product with a smaller
+#                             matrix as a multiply and a reduction
+
+
+def _qk(row) -> bool:
+    """A product contracting fewer elements than its result row holds: an
+    attention's Q.K^T (the head dim against the keys)."""
+    lhs, rhs = row[1][:2]
+    return lhs[-1] < rhs[-1]
+
+
+def matvec_flops(rows) -> float:
+    return sum(r[4] for r in rows if r[0] != "flash_attention"
+               and math.prod(r[1][0][:-1]) == 1
+               and math.prod(r[1][1]) < VEC_MATRIX)
+
+
+DRYRUN_RESIDUAL = {
+    "jamba-1.5-large-398b/long_500k/pod16x16/baseline": lambda rows: 15 * sum(
+        r[4] for r in rows if r[2] == ATTN_ROWS[0] and not _qk(r)),
+    "whisper-base/decode_32k/pod16x16/baseline": lambda rows: sum(
+        r[4] for r in rows if r[2] in ATTN_ROWS and _qk(r)),
+}
+DRYRUN_RATIO_REL = 1e-9     # the counts are exact: the same ops, any host
+# the JAX package's compiled output is a tuple whose table holds a
+# pointer a leaf; the port's outputs carry no table
+POINTER_BYTES = 8
 REAL_ARCH = "qwen1.5-0.5b"
 REAL_PREFILL = 32768        # prefill_32k's seq; batch cut from 32 to 1
 REAL_TRAIN = 4096           # train_4k's seq; batch cut from 256 to 1
@@ -4939,9 +5094,12 @@ def dry_run_combos(smi: str) -> dict:
     ``DRYRUN_COMBOS`` traced at full size on a ``cuda`` mesh of 256 or 512
     fake ranks (fake card tensors; nothing is allocated on the card),
     each record printed beside the JAX package's (``DRYRUN_REFERENCE``).
-    Every trace must end ``ok`` on the right device count, and every
-    all-reduce the MoE layer issues under ``moe_bf16_psum`` must move
-    bf16.  Returns the records."""
+    Every trace must end ``ok`` on the right device count, with its
+    per-device FLOPs, less their matrix-vector products and plus the
+    combo's ``DRYRUN_RESIDUAL``, the JAX package's, and its
+    output bytes plus 8 B a leaf of the JAX package's output equal to the
+    JAX package's; every all-reduce the MoE layer issues under
+    ``moe_bf16_psum`` must move bf16.  Returns the records."""
     from repro_torch.launch import dryrun, mesh as pmesh
     out = {}
     for arch, shape, multi_pod, variant in DRYRUN_COMBOS:
@@ -4962,14 +5120,35 @@ def dry_run_combos(smi: str) -> dict:
                                  f"devices, not {n_dev}")
         ref = DRYRUN_REFERENCE[key]
         ma = rec["memory_analysis"]
+        ratio = rec["flops_corrected"] / ref["flops_corrected"]
+        vec = matvec_flops(rec["dot_rows"])
+        extra = DRYRUN_RESIDUAL.get(key, lambda rows: 0.0)(rec["dot_rows"])
+        want = (rec["flops_corrected"] - vec + extra) / ref["flops_corrected"]
+        if abs(want - 1.0) > DRYRUN_RATIO_REL:
+            raise AssertionError(f"dry run {key}: flops/dev "
+                                 f"{rec['flops_corrected']:.6e} less "
+                                 f"matrix-vector {vec:.6e} plus residual "
+                                 f"{extra:.6e} is {want} of the JAX "
+                                 f"package's")
+        out_b = ma["output_size_in_bytes"] + POINTER_BYTES * ref[
+            "output_leaves"]
+        if out_b != ref["output_size_in_bytes"]:
+            raise AssertionError(f"dry run {key}: output bytes "
+                                 f"{ma['output_size_in_bytes']} + "
+                                 f"{POINTER_BYTES} x {ref['output_leaves']} "
+                                 f"leaves != the JAX package's "
+                                 f"{ref['output_size_in_bytes']}")
         coll = {k: v["bytes"] for k, v in rec["collectives"].items()
                 if v["count"]}
         log(f"dryrun 17.1 {key}: flops/dev {rec['flops_corrected']:.6e} "
-            f"(JAX {ref['flops_corrected']:.6e}), args "
+            f"(JAX {ref['flops_corrected']:.6e}, ratio {ratio:.10f}; less "
+            f"matrix-vector {vec:.6e}, plus residual {extra:.6e}: "
+            f"{want:.12f}), args "
             f"{ma['argument_size_in_bytes']:,} B (JAX "
             f"{ref['argument_size_in_bytes']:,}), out "
             f"{ma['output_size_in_bytes']:,} B (JAX "
-            f"{ref['output_size_in_bytes']:,}), peak live "
+            f"{ref['output_size_in_bytes']:,}; + {POINTER_BYTES} B x "
+            f"{ref['output_leaves']} leaves: equal), peak live "
             f"{rec['peak_live_bytes']:,} B, collectives {coll} (JAX "
             f"{ref['collectives']}), redistributions "
             f"{rec['redistributions']}, trace {rec['trace_s']} s (JAX "

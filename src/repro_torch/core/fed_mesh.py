@@ -8,11 +8,16 @@ axis.  Here the client axis is dim 0 of every client-sharded tensor
 * one process holds every client: ``all_gather(tiled=True)`` is the flat
   view of dim 0, ``psum`` a sum over dim 0 and ``axis_index`` the client's
   row — what ``shard_map`` computes when one device holds every client;
-* a ``torch.distributed`` process group (gloo on the CPU): each rank holds
-  K/world consecutive clients, the buffers are gathered over the group and
-  the sums reduced over it.  Every summed quantity is a count held in f32,
-  so the group gives the one-process run's bits.  (Collectives across
-  cards, over NCCL, are not ported yet.)
+* a ``torch.distributed`` process group: each rank holds K/world
+  consecutive clients, the buffers are gathered over the group
+  (``all_gather_into_tensor``, NCCL's own gather) and the sums reduced
+  over it.  Every summed quantity is a count held in f32, so the group
+  gives the one-process run's bits.  It runs over gloo on the CPU (2 and
+  4 ranks in the tests) and over NCCL on a card (one rank: every client
+  on the one card, through the same gathers and sums a group of four
+  cards would take; four cards are not run yet).  The gathered buffers
+  are f32 and int32 and the sums f32, all types NCCL has; the
+  collectives run on the current stream's order, as the kernels do.
 
 Everything the paper schedules runs in :func:`make_fed_boost_step`'s step:
 
@@ -158,9 +163,9 @@ class _Group:
 
     def gather(self, t: Tensor) -> Tensor:
         t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.world)]
-        self.dist.all_gather(parts, t, group=self.group)
-        return torch.cat(parts, 0)
+        out = t.new_empty((self.world * t.shape[0],) + tuple(t.shape[1:]))
+        self.dist.all_gather_into_tensor(out, t, group=self.group)
+        return out
 
     def psum(self, t: Tensor) -> Tensor:
         s = t.sum(0)

@@ -18,7 +18,8 @@ The counts, with the reference's conventions:
 * ``flops_corrected``: 2 * prod(result) * prod(contracted) per matmul
   (``mm``, ``addmm``, ``bmm``, ``baddbmm``; an einsum reaches one of
   these), dots only, plus the flash kernel's custom op by its registered
-  formula (the causal half of the score matrix);
+  formula (the causal half of the score matrix); the record's
+  ``dot_rows`` splits it by op, operand shapes and issuing frame;
 * ``bytes_accessed_corrected``: operand + result bytes of every op but
   views and metadata queries (eager ops are not fused, so this counts
   what an unfused step moves);
@@ -32,7 +33,12 @@ The counts, with the reference's conventions:
 
 Each collective is also listed with the innermost frame of the port that
 issued it (``models/attention.py:attn_apply``), which
-``launch/inspect_combo.py`` ranks in place of HLO ``op_name`` metadata.
+``launch/inspect_combo.py`` ranks in place of HLO ``op_name`` metadata,
+and so is each matmul in ``dot_rows``.  A backward op runs from the
+autograd engine, below the frame that called ``backward``, so the mode
+also tags each forward op's autograd node with its issuer, and a
+backward op is listed under the issuer of the forward op it
+differentiates, as ``models/mamba.py:_cb (backward)``.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import weakref
 from typing import Dict, List
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -111,6 +118,41 @@ def issuer() -> str:
     return fallback
 
 
+def _dot_issuer() -> str:
+    """:func:`issuer`; where that is no model or kernel frame (a backward
+    op, run from the autograd engine), the issuer the running autograd
+    node was tagged with (:class:`_ForwardIssuers`), marked
+    ``(backward)``."""
+    who = issuer()
+    if who.startswith(("models", "kernels")):
+        return who
+    node = torch._C._current_autograd_node()
+    if node is not None and "issuer" in node.metadata:
+        return node.metadata["issuer"] + " (backward)"
+    return who + (f" ({node.name()})" if node is not None else "")
+
+
+class _ForwardIssuers(TorchFunctionMode):
+    """Tags the autograd nodes each op run under it made (its output's
+    node and every untagged node behind it: a composite op such as a 3-d
+    ``matmul`` makes several) with the op's :func:`issuer`, for
+    :func:`_dot_issuer` to read in the backward."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch.is_grad_enabled():
+            who = None
+            stack = [t.grad_fn for t in _tensors(out)]
+            while stack:
+                node = stack.pop()
+                if node is None or "issuer" in node.metadata:
+                    continue
+                who = who or issuer()
+                node.metadata["issuer"] = who
+                stack.extend(f for f, _ in node.next_functions)
+        return out
+
+
 def _in_propagation() -> bool:
     """Whether DTensor's sharding propagation is on the stack: it runs
     the op on global-shaped fake tensors (in the active fake mode, when
@@ -132,6 +174,7 @@ class CostMode(TorchDispatchMode):
     def __init__(self, fake_mode=None):
         super().__init__()
         self.fake_mode = fake_mode
+        self._issuers = _ForwardIssuers()
         self._flop_ops = _flop_ops()
         self.flops = 0.0
         self.bytes_accessed = 0.0
@@ -167,6 +210,15 @@ class CostMode(TorchDispatchMode):
     def _free(self, n: int) -> None:
         self.live -= n
 
+    def __enter__(self):
+        self._issuers.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        self._issuers.__exit__(*exc)
+        return out
+
     # ---------------------------------------------------------- dispatch
     def _foreign(self, tensors) -> bool:
         from torch._subclasses.fake_tensor import FakeTensor
@@ -192,7 +244,7 @@ class CostMode(TorchDispatchMode):
         if packet in self._flop_ops:
             f = flop_registry[packet](*args, **kwargs, out_val=out)
             self.flops += f
-            key = (name, tuple(tuple(t.shape) for t in ins), issuer())
+            key = (name, tuple(tuple(t.shape) for t in ins), _dot_issuer())
             row = self.dot_rows.setdefault(key, [0, 0.0])
             row[0] += 1
             row[1] += f
@@ -228,6 +280,9 @@ class CostMode(TorchDispatchMode):
     def record(self) -> Dict:
         return {
             "flops_corrected": float(self.flops),
+            "dot_rows": [[op, [list(t) for t in shapes], who, n, f]
+                         for (op, shapes, who), (n, f)
+                         in self.dot_rows.items()],
             "bytes_accessed_corrected": float(self.bytes_accessed),
             "collectives": {k: dict(v) for k, v in self.coll.items()},
             "collective_bytes_total": float(

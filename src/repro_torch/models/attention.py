@@ -37,6 +37,7 @@ takes the caches it returns.  Without a mesh the regions are plain calls.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -263,13 +264,29 @@ def attention_region(core, q, k, v, *rest, seq_core=None, q_pos=None,
     with it; the rows padded to a multiple of the axis) against every key
     (``k_pos``, default arange(Tk)), so the attention is not repeated on
     every device of the axis; its output is gathered back to q's layout
-    (counted under ``"seq"``)."""
+    (counted under ``"seq"``).  A single query row cannot split so: where
+    ``seq_core`` is unmasked (whisper's cross-attention at decode) and the
+    axis divides the head dim, :func:`_attend_row` runs on each device's
+    slice of it, its logits' partial sums summed over the axis (counted
+    under ``"hd"``)."""
     if not is_dtensor(q):
         return core(q, k, v, *rest)
     qs, kvs = head_specs(q, k)
     ctx = current()
     m = ctx["model"]
     n = dict(zip(q.device_mesh.mesh_dim_names, q.device_mesh.shape))[m]
+    kw = getattr(seq_core, "keywords", {})
+    if (qs[2] is None and q.shape[1] == 1 and n > 1 and q.shape[3] % n == 0
+            and kw and not kw["causal"] and not kw["window"]):
+        hs = (ctx["batch"], None, None, m)
+        partial_sum = _axis_sum(q.device_mesh, m)
+        out = local_region(
+            lambda q, k, v: _attend_row(q, k, v, None, kw["attn_cap"],
+                                        partial_sum, n).to(q.dtype),
+            (hs,) * 3, (0,), q, k, v)
+        count("hd")
+        return out.redistribute(q.device_mesh, placements_for(
+            q.device_mesh, q.shape, qs))
     if qs[2] is None and seq_core is not None and n > 1 and q.shape[1] > 1:
         dev = q.device
         T = q.shape[1]
@@ -301,16 +318,26 @@ def attention_region(core, q, k, v, *rest, seq_core=None, q_pos=None,
         q, k, v, *rest)
 
 
+def _axis_sum(mesh, axis: str):
+    """t -> t all-reduced (sum) over ``axis`` of ``mesh``: the logits'
+    partial sums over a split head dim (no gradient: decode only)."""
+    from torch.distributed import _functional_collectives as funcol
+    group = (mesh, list(mesh.mesh_dim_names).index(axis))
+    return lambda t: funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+
 def chunked_core(causal: bool, window: int = 0, attn_cap: float = 0.0,
                  block_q: int = 512):
     """A ``seq_core`` for :func:`attention_region`: :func:`_sdpa_chunked`
-    over explicit positions, its route counted in ``ROUTES``."""
-    def core(q, k, v, q_pos, k_pos):
-        ROUTES["chunked_grad" if _records_grad(q, k, v) else "chunked"] += 1
-        return _sdpa_chunked(q, k, v, q_pos, k_pos, causal=causal,
-                             window=window, attn_cap=attn_cap,
-                             block_q=block_q)
-    return core
+    over explicit positions, its route counted in ``ROUTES``; its
+    ``keywords`` tell the region the mask."""
+    return functools.partial(_chunked, causal=causal, window=window,
+                             attn_cap=attn_cap, block_q=block_q)
+
+
+def _chunked(q, k, v, q_pos, k_pos, **kw):
+    ROUTES["chunked_grad" if _records_grad(q, k, v) else "chunked"] += 1
+    return _sdpa_chunked(q, k, v, q_pos, k_pos, **kw)
 
 
 def _kv_cutter(q, k, qs, kvs):
@@ -453,7 +480,9 @@ def _decode_region(core, q, k, v, ck, cv):
     along the head dim: each device writes its slice of the new key and
     value, the logits' partial sums are all-reduced over the axis, and
     the output, split along the head dim, is gathered whole (one token a
-    row: small).  Otherwise q, and k, v and the cache, by
+    row: small); a batch the batch axes cannot split splits q's heads
+    over them (:func:`_idle_heads`), here and on a model axis of one
+    device.  Otherwise q, and k, v and the cache, by
     :func:`head_specs` (a cache laid out otherwise is redistributed to
     it, counted), each device writing its kv heads and its q heads
     reading the ones they map to.  Returns (o, ck, cv) as DTensors, the
@@ -463,24 +492,53 @@ def _decode_region(core, q, k, v, ck, cv):
     mesh = q.device_mesh
     names = list(mesh.mesh_dim_names)
     n = mesh.shape[names.index(m)]
-    if n > 1 and k.shape[2] % n and q.shape[3] % n == 0:
-        from torch.distributed import _functional_collectives as funcol
-        group = (mesh, names.index(m))
-        hs = (ctx["batch"], None, None, m)
-
-        def partial_sum(t):
-            return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
-        o, ck, cv = local_region(
-            lambda q, k, v, ck, cv: core(q, k, v, ck, cv, None,
-                                         partial_sum, n),
-            (hs,) * 5, (0, 3, 4), q, k, v, ck, cv)
-        count("hd")
-        return (o.redistribute(mesh, placements_for(
-            mesh, o.shape, (ctx["batch"], None, None, None))), ck, cv)
+    hd_split = n > 1 and k.shape[2] % n and q.shape[3] % n == 0
+    if hd_split or n == 1:
+        hs = (ctx["batch"], None, None, m if hd_split else None)
+        qs, cut = _idle_heads(q, k, hs)
+        if hd_split or cut is not None:
+            partial_sum = _axis_sum(mesh, m) if hd_split else None
+            o, ck, cv = local_region(
+                lambda q, k, v, ck, cv: core(q, k, v, ck, cv, cut,
+                                             partial_sum, n),
+                (qs,) + (hs,) * 4, (0, 3, 4), q, k, v, ck, cv)
+            count("hd" if hd_split else "idle_heads")
+            return (o.redistribute(mesh, placements_for(
+                mesh, o.shape, (ctx["batch"], None, None, None))), ck, cv)
     qs, kvs = head_specs(q, k)
     cut = _kv_cutter(q, k, qs, kvs)
     return local_region(lambda q, k, v, ck, cv: core(q, k, v, ck, cv, cut),
                         (qs,) + (kvs,) * 4, (0, 3, 4), q, k, v, ck, cv)
+
+
+def _idle_heads(q, k, hs):
+    """(q's spec, cut) for the head-dim split of :func:`_decode_region`.
+    Where the batch cannot split over the batch axes (long_500k's one
+    row), those axes would repeat the whole score: q's heads split over
+    them instead (where they divide the heads and a device's heads map
+    evenly onto kv heads), and ``cut(q, ck, cv)`` keeps the kv heads the
+    device's q heads read.  Else (``hs``, None)."""
+    ctx = current()
+    axes = ctx["all_batch_axes"]
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    if ctx["batch"] is not None or not axes:
+        return hs, None
+    nb, rank = 1, 0
+    for a in axes:
+        i = names.index(a)
+        rank = rank * mesh.shape[i] + mesh.get_local_rank(i)
+        nb *= mesh.shape[i]
+    hq, hkv = q.shape[2], k.shape[2]
+    g, hq_loc = hq // hkv, hq // nb
+    if nb == 1 or hq % nb or not (g % hq_loc == 0 or hq_loc % g == 0):
+        return hs, None
+    lo = rank * hq_loc // g
+    hi = (rank * hq_loc + hq_loc - 1) // g + 1
+
+    def cut(q_loc, ck, cv):
+        return ck[:, :, lo:hi], cv[:, :, lo:hi]
+    return (None, None, axes, hs[3]), cut
 
 
 def _decode_core(q, k, v, ck, cv, pos: int, window: int, attn_cap: float,
@@ -491,7 +549,6 @@ def _decode_core(q, k, v, ck, cv, pos: int, window: int, attn_cap: float,
     (B,1,Hq,hd) in ``dtype``, ck, cv).  With ``partial_sum`` the tensors
     hold one of ``hd_parts`` slices of the head dim: the logits' partial
     sums go through it, scaled by the whole head dim."""
-    B, _, hq, hd = q.shape
     S = ck.shape[1]
     dev = q.device
     slot = pos % S                     # == pos for full-length caches
@@ -508,16 +565,27 @@ def _decode_core(q, k, v, ck, cv, pos: int, window: int, attn_cap: float,
         valid &= (pos - abs_pos) < window
 
     ak, av = (ck, cv) if cut is None else cut(q, ck, cv)
-    hkv = ak.shape[2]
-    G = hq // hkv
-    qg = q.reshape(B, hkv, G, hd).to(F32)
-    logits = torch.einsum("bhgd,bshd->bhgs", qg, ak.to(F32))
+    o = _attend_row(q, ak, av, valid, attn_cap, partial_sum, hd_parts)
+    return o.to(dtype), ck, cv
+
+
+def _attend_row(q, k, v, valid, attn_cap: float, partial_sum=None,
+                hd_parts: int = 1) -> torch.Tensor:
+    """One query row q (B,1,Hq,hd) over k, v (B,S,Hkv,hd), the keys
+    ``valid`` (S,) keeps (None: every key); returns (B,1,Hq,hd) f32.  With
+    ``partial_sum`` the tensors hold one of ``hd_parts`` slices of the
+    head dim: the logits' partial sums go through it, scaled by the whole
+    head dim."""
+    B, _, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(B, hkv, hq // hkv, hd).to(F32)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.to(F32))
     if partial_sum is not None:
         logits = partial_sum(logits)
-    logits = logits / math.sqrt(hd * hd_parts)
-    logits = softcap(logits, attn_cap)
-    logits = torch.where(valid[None, None, None, :], logits,
-                         torch.full_like(logits, NEG_INF))
+    logits = softcap(logits / math.sqrt(hd * hd_parts), attn_cap)
+    if valid is not None:
+        logits = torch.where(valid[None, None, None, :], logits,
+                             torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", w, av.to(F32))
-    return o.reshape(B, 1, hq, hd).to(dtype), ck, cv
+    o = torch.einsum("bhgs,bshd->bhgd", w, v.to(F32))
+    return o.reshape(B, 1, hq, hd)

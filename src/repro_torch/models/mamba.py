@@ -123,8 +123,10 @@ class HeadShard:
     """One device's share of a Mamba layer's heads under a mesh: ``rank``
     of ``n`` along the model axis, ``group`` its collectives' group.  The
     core cuts the conv's x channels to its heads (the B and C channels,
-    shared by every head, stay whole), sums the gated norm's squares over
-    the group, and gathers the conv state's x channels back whole."""
+    shared by every head, stay whole; a decode step convolves its share
+    of them and gathers the rest), splits the SSD's C·Bᵀ over the state
+    channels, sums the gated norm's squares over the group, and gathers
+    the conv state's x channels back whole."""
 
     def __init__(self, rank: int, n: int, group):
         self.rank, self.n, self.group = rank, n, group
@@ -143,6 +145,42 @@ class HeadShard:
         x = _all_gather(state[..., :di_loc].contiguous(), state.dim() - 1,
                         self.group)
         return torch.cat([x, state[..., di_loc:]], dim=-1)
+
+    def conv_step(self, window: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor, di_loc: int) -> torch.Tensor:
+        """A decode step's conv (:func:`_conv_step`) over the channels
+        :meth:`conv_cut` keeps: the x channels local, and each device its
+        N/n of the B and of the C channels, the rest gathered from the
+        group, so no device convolves every B and C channel (all of them
+        where the axis does not divide N)."""
+        N = (window.shape[-1] - di_loc) // 2
+        if N % self.n:
+            return _conv_step(window, w, b)
+        m = N // self.n
+        lo = di_loc + self.rank * m
+
+        def mine(t):
+            return torch.cat([t[..., :di_loc], t[..., lo:lo + m],
+                              t[..., lo + N:lo + N + m]], dim=-1)
+        out = _conv_step(mine(window), mine(w), mine(b))
+        from repro_torch.models.moe import _all_gather
+        bc = _all_gather(out[:, di_loc:].contiguous(), 1, self.group)
+        bc = bc.reshape(out.shape[0], self.n, 2, m).transpose(1, 2)
+        return torch.cat([out[:, :di_loc], bc.reshape(out.shape[0], 2 * N)],
+                         dim=-1)
+
+    def cb(self, Cc: torch.Tensor, Bc: torch.Tensor) -> torch.Tensor:
+        """The SSD's per-chunk C·Bᵀ, (B,L,N) x (B,L,N) -> (B,L,L), shared
+        by every head: each device contracts its N/n of the state
+        channels and the partial products are summed over the group, so
+        the product is not repeated on every device (N whole where the
+        axis does not divide it)."""
+        N = Cc.shape[-1]
+        if N % self.n:
+            return _cb(Cc, Bc)
+        lo, hi = self.rank * N // self.n, (self.rank + 1) * N // self.n
+        return _PartialSum.apply(_cb(Cc[..., lo:hi], Bc[..., lo:hi]),
+                                 self.group)
 
     def norm(self, v: torch.Tensor, weight: torch.Tensor, eps: float):
         """:func:`rms_norm` over the whole d_inner of which ``v`` holds
@@ -197,11 +235,24 @@ def _split_conv(xbc: torch.Tensor, cfg: ArchConfig):
     return F.silu(xin), Bp, Cp
 
 
-def _ssd_chunk_scan(xh, Bp, Cp, dt, A, h0):
+def _conv_step(window: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """One decode step's causal conv in f32: window (B,k,C) of the
+    carried k-1 rows and the new one, w (k,C), b (C,) -> (B,C)."""
+    return torch.einsum("bkc,kc->bc", window.to(F32),
+                        w.to(F32)) + b.to(F32)
+
+
+def _cb(Cc: torch.Tensor, Bc: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("btn,bsn->bts", Cc, Bc)
+
+
+def _ssd_chunk_scan(xh, Bp, Cp, dt, A, h0, cb=_cb):
     """SSD over all chunks, one after the other.
 
     xh: (B,C,L,H,P); Bp, Cp: (B,C,L,N) f32; dt: (B,C,L,H) f32; A: (H,)
-    negative; h0: (B,H,P,N) f32 initial state.  Returns (y: (B,C,L,H,P)
+    negative; h0: (B,H,P,N) f32 initial state; ``cb`` the chunk's C·Bᵀ
+    (:meth:`HeadShard.cb` on a device's heads).  Returns (y: (B,C,L,H,P)
     f32, h_final)."""
     L = xh.shape[2]
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=xh.device))
@@ -215,7 +266,7 @@ def _ssd_chunk_scan(xh, Bp, Cp, dt, A, h0):
         total = cum[:, -1]                                     # (B,H)
 
         # intra-chunk (dual, attention-like) term; the exponent is masked
-        CB = torch.einsum("btn,bsn->bts", Cc, Bc)              # (B,L,L)
+        CB = cb(Cc, Bc)                                        # (B,L,L)
         expo = cum[:, :, None, :] - cum[:, None, :, :]          # (B,t,s,H)
         decay = torch.exp(torch.where(tri[None, :, :, None], expo,
                                       -torch.inf))
@@ -234,10 +285,10 @@ def _ssd_chunk_scan(xh, Bp, Cp, dt, A, h0):
     return torch.stack(ys, dim=1), h
 
 
-def _ssd(xin, Bp, Cp, dt, A, D, cfg: ArchConfig, h0=None):
+def _ssd(xin, Bp, Cp, dt, A, D, cfg: ArchConfig, h0=None, cb=_cb):
     """xin: (B,T,di) post-conv; returns (y: (B,T,di), h_final: (B,H,P,N)).
     The chunk length is ``cfg.mamba.chunk`` (at most T), halved until it
-    divides T."""
+    divides T; ``cb`` is :func:`_ssd_chunk_scan`'s."""
     mc, hd, N = cfg.mamba, cfg.mamba.head_dim, cfg.mamba.d_state
     B, T, di = xin.shape
     nh = di // hd               # all heads, or one device's
@@ -252,7 +303,7 @@ def _ssd(xin, Bp, Cp, dt, A, D, cfg: ArchConfig, h0=None):
     dtc = dt.reshape(B, C, L, nh)
     if h0 is None:
         h0 = torch.zeros((B, nh, hd, N), dtype=F32, device=xin.device)
-    y, h = _ssd_chunk_scan(xh, Bc, Cc, dtc, A, h0)
+    y, h = _ssd_chunk_scan(xh, Bc, Cc, dtc, A, h0, cb)
     y = y.reshape(B, T, nh, hd) + D[None, None, :, None] * xh.reshape(
         B, T, nh, hd).to(F32)
     return y.reshape(B, T, di).to(xin.dtype), h
@@ -280,7 +331,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, h0=None, conv0=None):
             conv_out = _causal_conv(xbc, conv_w, conv_b)
         xin, Bp, Cp = _split_conv(conv_out, cfg)
         A = -torch.exp(A_log)
-        y, h = _ssd(xin, Bp, Cp, dt, A, D, cfg, h0)
+        y, h = _ssd(xin, Bp, Cp, dt, A, D, cfg, h0,
+                    _cb if shard is None else shard.cb)
         gated = y * F.silu(z)
         y = (rms_norm(gated, norm, cfg.norm_eps) if shard is None
              else shard.norm(gated, norm, cfg.norm_eps))
@@ -320,8 +372,8 @@ def mamba_decode(p, x: torch.Tensor, state: State, cfg: ArchConfig):
                                     for t in (conv_w, conv_b, conv))
         xbc, dt = _xbc_dt(xin, Bp, Cp, dt_logit, dt_bias)      # T = 1
         window = torch.cat([conv, xbc[:, :1]], dim=1)          # (B,k,Cd)
-        conv_out = torch.einsum("bkc,kc->bc", window.to(F32),
-                                conv_w.to(F32)) + conv_b.to(F32)
+        conv_out = (_conv_step(window, conv_w, conv_b) if shard is None
+                    else shard.conv_step(window, conv_w, conv_b, di_loc))
         xin, Bp, Cp = _split_conv(conv_out[:, None].to(z.dtype), cfg)
         xh = xin[:, 0].reshape(B, nh_loc, hd).to(F32)
         Bv = Bp[:, 0].to(F32)                                  # (B,N)

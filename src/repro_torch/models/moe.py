@@ -14,11 +14,13 @@ expert output, the layer's output) and runs the steps DTensor has no rule
 for (the argmax passes, the dispatch scatter, the aux loss's one-hot, the
 combine) on each device's batch rows (``local_region``): every row is
 routed and dispatched on the device that holds it, as the reference's
-per-row vmap is.  ``moe.sharding == "tensor_sm"`` is the reference's
-``shard_map`` branch (:func:`_expert_tensor_sm`): the expert products run
-on the local weight shards, the FSDP all-gathers are explicit, and the
-down projection's partial sums are cast to the activation dtype before
-the all-reduce over the model axis.  Without a mesh every branch takes
+per-row vmap is.  The router's product is kept from repeating on every
+device of the model axis (:func:`_router_logits`).
+``moe.sharding == "tensor_sm"`` is the reference's ``shard_map`` branch
+(:func:`_expert_tensor_sm`): the expert products run on the local weight
+shards, the FSDP all-gathers are explicit, and the down projection's
+partial sums are cast to the activation dtype before the all-reduce over
+the model axis.  Without a mesh every branch takes
 the ``dense_path`` as before.
 
 The params are an ``nn.ParameterDict`` keyed ``router`` (D, E), always
@@ -216,10 +218,76 @@ def _topk_gates(probs: torch.Tensor, k: int):
     return gate_vals, expert_idx
 
 
+def _router_logits(x: torch.Tensor, w) -> torch.Tensor:
+    """x (B,T,D) @ router (D,E) in f32, the (B,T,E) logits.  Under a mesh
+    context the product is not repeated on every device of the model
+    axis where the axis divides E: with one token a row (decode) each
+    device takes its E/n columns of the router, a local slice, and the
+    logits are gathered whole (``constrain`` "b3": one small row a
+    token); with many, the forward stays whole on every device (a gather
+    of every token's logits would cost more than the product saves) and
+    its backward splits the weight's gradient by columns
+    (:class:`_RouterProduct`)."""
+    x = x.to(F32)
+    ctx = current()
+    if is_dtensor(w) and ctx is not None:
+        mesh = w.device_mesh
+        i = list(mesh.mesh_dim_names).index(ctx["model"])
+        n = mesh.shape[i]
+        if n > 1 and w.shape[1] % n == 0 and w.placements[i].is_replicate():
+            if x.shape[1] == 1:
+                from torch.distributed.tensor import Shard
+                pl = list(w.placements)
+                pl[i] = Shard(1)
+                w = w.redistribute(mesh, pl)
+            elif torch.is_grad_enabled() and w.requires_grad:
+                return _RouterProduct.apply(x, w, i)
+    return _router_product(x, w)
+
+
+class _RouterProduct(torch.autograd.Function):
+    """x @ w for DTensors whole on mesh dim ``i`` (the model axis); the
+    backward computes x's gradient whole, as the forward, and w's by
+    columns, each device its E/n (a local slice of the logits' gradient),
+    gathered whole by the layout change back to w's."""
+
+    @staticmethod
+    def forward(ctx, x, w, i):
+        ctx.save_for_backward(x, w)
+        ctx.i = i
+        return _router_product(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _router_grads(x, w, g, ctx.i) + (None,)
+
+
+def _router_product(x, w):
+    return constrain(x @ w, "b3")
+
+
+def _router_grads(x, w, g, i: int):
+    """(x's gradient, whole; w's, each device its columns, gathered)."""
+    from torch.distributed.tensor import Shard
+    gx = g @ w.transpose(0, 1)
+    pl = list(g.placements)
+    pl[i] = Shard(g.dim() - 1)
+    ge = g.redistribute(g.device_mesh, pl)
+    gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) @ ge.reshape(
+        -1, ge.shape[-1])
+    # w's layout, but a pending sum (over the batch shards) stays pending:
+    # the step's gradient reduction carries it out
+    pl = [p if p.is_partial() else q
+          for p, q in zip(gw.placements, w.placements)]
+    return gx, gw.redistribute(w.device_mesh, pl)
+
+
 def route(p, x: torch.Tensor, m: MoEConfig):
     """(probs (B,T,E) f32, normalized gates (B,T,K) f32, expert_idx
     (B,T,K) int32) from the f32 router."""
-    probs = constrain(torch.softmax(x.to(F32) @ p["router"], dim=-1), "b3")
+    probs = constrain(torch.softmax(_router_logits(x, p["router"]), dim=-1),
+                      "b3")
     gate_vals, expert_idx = _batch_region(
         lambda pr: _topk_gates(pr, m.top_k), 2, probs)
     return probs, constrain(gate_vals, "b3"), constrain(expert_idx, "b3")

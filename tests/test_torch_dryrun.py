@@ -4,15 +4,21 @@ op) against the JAX package's, on the CPU.
 
 * FLOPs: the reference's ``steps.build`` + ``hlo_analysis.analyze`` runs
   in a subprocess on 1 and on 4 placeholder devices (meshes 1x1 and 2x2)
-  for reduced qwen1.5-0.5b and qwen3-moe (2 layers) at train 2 x 256,
-  prefill 2 x 256 and decode 2 against 256; the port traces the same
-  steps on fake meshes of its own.  At 1x1 the port's per-device count
-  equals the reference's ``flops_corrected`` within 1e-3 for train and
-  decode; for prefill the gap is exactly the flash layers' chunked
-  softmax dots (the reference's LM stack never runs its flash kernel,
-  ROADMAP C6) less the flash op's formula.  At 2x2 the port's per-device
-  count times 4 is at least its 1x1 count; ``-rP`` prints both packages'
-  2x2 counts.
+  for reduced qwen1.5-0.5b, qwen3-moe, mamba2, whisper-base and an
+  8-layer Jamba period at train 2 x 256, prefill 2 x 256 and decode 2
+  against 256, and mamba2 and Jamba at a one-row decode; the port traces
+  the same steps on fake meshes of its own.  At 1x1 the port's
+  per-device count equals the reference's ``flops_corrected`` within
+  1e-3 for train and decode, once the differences worked out from the
+  config alone are taken off: a one-row decode's matrix-vector products
+  and the SSD scan's backward products (the port's rows held to that
+  count exactly).  For prefill the flash calls count exactly the op's
+  formula and the gap is exactly the flash layers' chunked softmax dots
+  (the reference's LM stack never runs its flash kernel, ROADMAP C6)
+  less that formula.  At 2x2 the port's per-device count times 4 is at
+  least its 1x1 count, and the ops that are split take exactly a quarter
+  of their 1x1 count; ``-rP`` prints both packages' 2x2 counts.  The
+  output bytes plus 8 B an output leaf equal the reference's.
 * ``tensor_sm``: two gloo ranks on a (1, 2) mesh run one reduced qwen3-moe
   MoE layer in bf16; its output matches the port's dense path without a
   mesh and the reference's ``shard_map`` branch on 2 placeholder devices
@@ -50,8 +56,16 @@ from repro_torch.models import attention  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("qwen1.5-0.5b", "qwen3-moe-30b-a3b")
+# (name, reduced's keywords, fields replaced after): whisper at d_model 96
+# has 3 heads, which 2 devices cannot split (its decode cross-attention
+# then splits the head dim); Jamba at 8 layers keeps its whole period
+ARCHS = (("qwen1.5-0.5b", {}, {}), ("qwen3-moe-30b-a3b", {}, {}),
+         ("mamba2-1.3b", {}, {}), ("whisper-base", {"d_model": 96}, {}),
+         ("jamba-1.5-large-398b", {"n_layers": 8},
+          {"attn_every": 8, "attn_offset": 4}))
 MODES = ("train", "prefill", "decode")
+# a long decode's one row (long_500k's batch), which no data axis splits
+LONG_ARCHS = ("mamba2-1.3b", "jamba-1.5-large-398b")
 B, T = 2, 256
 FLOP_REL = 1e-3
 BF16_TOL = 2e-2
@@ -76,6 +90,19 @@ def _fake_group(world: int):
         pmesh.release()
 
 
+def _cfg(name, rkw, over):
+    import dataclasses
+    return dataclasses.replace(reduced(get_arch(name), **rkw), **over)
+
+
+def _shapes(name):
+    """mode label -> ShapeConfig of the arch's FLOP cases."""
+    out = {m: ShapeConfig("t", T, B, m) for m in MODES}
+    if name in LONG_ARCHS:
+        out["long"] = ShapeConfig("t", T, 1, "decode")
+    return out
+
+
 def _cpu_mesh(data, model):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh("cpu", (data, model),
@@ -83,7 +110,7 @@ def _cpu_mesh(data, model):
 
 
 REFERENCE_FLOPS = textwrap.dedent("""
-    import os, sys, json
+    import os, sys, json, dataclasses
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import numpy as np, jax
     from jax.sharding import AxisType, Mesh
@@ -99,13 +126,16 @@ REFERENCE_FLOPS = textwrap.dedent("""
         mesh = Mesh(devs, ("data", "model"),
                     axis_types=(AxisType.Auto,) * 2)
         pol = sh.ShardingPolicy(batch_axes=("data",))
-        for arch in %(archs)r:
-            cfg = reduced(get_arch(arch))
-            for mode in %(modes)r:
-                built = build(cfg, ShapeConfig("t", %(T)d, %(B)d, mode),
+        for arch, rkw, over in %(archs)r:
+            cfg = dataclasses.replace(reduced(get_arch(arch), **rkw), **over)
+            modes = [(m, %(B)d, m) for m in %(modes)r]
+            if arch in %(long)r:
+                modes.append(("long", 1, "decode"))
+            for mode, b, kind in modes:
+                built = build(cfg, ShapeConfig("t", %(T)d, b, kind),
                               mesh, pol, remat=True)
                 with mesh, activation_sharding(("data",), "model",
-                                               batch_shardable=True,
+                                               batch_shardable=b %% d == 0,
                                                mesh=mesh, fsdp_axis="data"):
                     c = jax.jit(built["fn"],
                                 in_shardings=sh.to_named(
@@ -113,10 +143,14 @@ REFERENCE_FLOPS = textwrap.dedent("""
                                 out_shardings=sh.to_named(
                                     mesh, built["out_shardings"])
                                 ).lower(*built["args"]).compile()
-                out[f"{d}x{m}/{arch}/{mode}"] = analyze(
-                    c.as_text())["flops_corrected"]
+                    leaves = jax.tree.leaves(jax.eval_shape(
+                        built["fn"], *built["args"]))
+                out[f"{d}x{m}/{arch}/{mode}"] = {
+                    "flops": analyze(c.as_text())["flops_corrected"],
+                    "out_bytes": c.memory_analysis().output_size_in_bytes,
+                    "leaves": len(leaves)}
     print(json.dumps(out))
-""") % dict(archs=ARCHS, modes=MODES, T=T, B=B)
+""") % dict(archs=ARCHS, modes=MODES, T=T, B=B, long=LONG_ARCHS)
 
 
 @pytest.fixture(scope="module")
@@ -129,47 +163,192 @@ def reference_flops():
 
 
 def _port_flops(data, model):
+    """"arch/mode" -> (the record, {issuing frame: flops}, the flops of
+    matrix-vector rows: products whose first operand has one row, the
+    count's dot rows)."""
     out = {}
     with _fake_group(data * model):
         mesh = _cpu_mesh(data, model)
         pol = sh.ShardingPolicy(batch_axes=("data",))
-        for arch in ARCHS:
-            cfg = reduced(get_arch(arch))
-            for mode in MODES:
-                res = dryrun.trace_step(cfg, ShapeConfig("t", T, B, mode),
-                                        mesh, pol, device="cpu")
-                flash = sum(f for (op, _, _), (_, f) in
-                            res["mode"].dot_rows.items()
-                            if op == "flash_attention")
-                out[f"{arch}/{mode}"] = (res["record"]["flops_corrected"],
-                                         flash)
+        for arch, rkw, over in ARCHS:
+            cfg = _cfg(arch, rkw, over)
+            for mode, shape in _shapes(arch).items():
+                res = dryrun.trace_step(cfg, shape, mesh, pol, device="cpu")
+                frames, vec = {}, 0.0
+                for (op, shapes, who), (_, f) in \
+                        res["mode"].dot_rows.items():
+                    frames[who] = frames.get(who, 0.0) + f
+                    if op != "flash_attention" and np.prod(
+                            shapes[0][:-1]) == 1:
+                        vec += f
+                out[f"{arch}/{mode}"] = (res["record"], frames, vec,
+                                         res["mode"].dot_rows)
     return out
 
 
+def _chunks(cfg) -> tuple:
+    """(mamba layers, chunk length, chunks) of a step over T, as
+    ``mamba._ssd`` cuts it."""
+    from repro_torch.models.transformer import layer_kinds
+    L = min(cfg.mamba.chunk, T)
+    while T % L:
+        L //= 2
+    return sum(k == "mamba" for k, _ in layer_kinds(cfg)), L, T // L
+
+
+def _scan_backward(cfg, b: int) -> tuple:
+    """The SSD scan's backward products in a train step of batch ``b`` a
+    device, from the config alone: ({(lhs, rhs) shapes: count} that the
+    port's autograd runs, the FLOPs the reference's differentiated
+    ``lax.scan`` counts beyond them).  Autograd runs both products of the
+    intra-chunk term (scores (bH, L, L) @ x (bH, L, P)) and the inter-
+    chunk term's product into C on every chunk; that term's product into
+    the carried state on every chunk but the first (the initial state is
+    zeros, with no gradient), and the state update's two (x^T (bH, P, L)
+    @ w.B (bH, L, N)) on every chunk but the last (its final state is
+    unused).  The scan differentiates every chunk alike, so counts those
+    three products once more a layer; and XLA contracts the state
+    update's x over the head dim as one more product (2.b.L.H.P a chunk)
+    where the port multiplies and sums."""
+    from collections import Counter
+    m = cfg.mamba
+    n, L, C = _chunks(cfg)
+    H, P, N = m.expand * cfg.d_model // m.head_dim, m.head_dim, m.d_state
+    bh = b * H
+    rows = Counter()
+    rows[(bh, L, P), (bh, P, L)] += n * C            # into the scores
+    rows[(bh, L, L), (bh, L, P)] += n * C            # into x
+    rows[(b, L, H * P), (b, H * P, N)] += n * C      # into C
+    rows[(b, N, L), (b, L, H * P)] += n * (C - 1)    # into the state
+    rows[(bh, P, N), (bh, N, L)] += n * (C - 1)      # into x^T
+    rows[(bh, L, P), (bh, P, N)] += n * (C - 1)      # into w.B
+    skipped = n * (2 * b * N * L * H * P + 2 * (2 * bh * P * N * L))
+    return dict(rows), skipped + n * C * 2 * b * L * H * P
+
+
+def _prefill_flash(cfg, b: int) -> tuple:
+    """(the flash calls' FLOPs by the op's formula, what the reference's
+    chunked softmax computes in their place beyond that) in a prefill of
+    T, batch ``b`` a device, from the config alone: every attention layer
+    of the stack causal over T (the formula counts the causal half of the
+    (T, T) square, the chunked softmax both products over all of it), and
+    whisper's encoder layers unmasked over its frames (both count the
+    whole square)."""
+    from repro_torch.models.transformer import layer_kinds
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    n = sum(k == "attn" for k, _ in layer_kinds(cfg))
+    S = cfg.encoder_seq
+    formula = 4 * b * H * hd * (T * (T + 1) // 2)
+    chunked = 2 * (2 * b * H * T * T * hd)
+    square = 4 * b * H * S * S * hd
+    return (n * formula + cfg.n_encoder_layers * square,
+            n * (chunked - formula))
+
+
+# Frames whose products the dry run's splits keep from repeating on the 2x2
+# mesh: per device, a quarter of the 1x1 count.  (The SSD's C.B^T split
+# over the state channels, the decode router's over the experts, the
+# one-row decode's q heads over the idle data axis and the head dim over
+# the model axis, a cross-attention query's head dim.)
+SPLIT_FRAMES = {
+    ("mamba2-1.3b", "train"): ("models/mamba.py:_cb",
+                               "models/mamba.py:_cb (backward)"),
+    ("mamba2-1.3b", "prefill"): ("models/mamba.py:_cb",),
+    ("jamba-1.5-large-398b", "train"): ("models/mamba.py:_cb",
+                                        "models/mamba.py:_cb (backward)"),
+    ("jamba-1.5-large-398b", "prefill"): ("models/mamba.py:_cb",),
+    ("jamba-1.5-large-398b", "decode"): ("models/moe.py:_router_product",),
+    ("jamba-1.5-large-398b", "long"): ("models/moe.py:_router_product",
+                                       "models/attention.py:_attend_row"),
+    ("qwen3-moe-30b-a3b", "decode"): ("models/moe.py:_router_product",),
+    # at 1x1 the cross-attention's one query row takes the chunked
+    # softmax whole, at 2x2 the one-row core as the self-attention's
+    # decode does: (the 1x1 frames, the 2x2 frames)
+    ("whisper-base", "decode"): ((("models/attention.py:_sdpa_chunked",
+                                   "models/attention.py:_attend_row"),
+                                  ("models/attention.py:_attend_row",)),),
+}
+
+
 def test_flops_equal_the_reference_per_device(reference_flops):
+    """At 1x1 the port's count equals the reference's within FLOP_REL;
+    prefill's flash calls count exactly :func:`_prefill_flash`'s formula
+    and the reference exactly its C6 gap more; a one-row decode's count is
+    above it by exactly its matrix-vector products, which XLA's CPU
+    compiler rewrites as multiplies and reductions (no ``dot`` left to
+    count); an SSD train step runs exactly :func:`_scan_backward`'s
+    backward products and the reference counts its extra.  At 2x2 the
+    frames of
+    ``SPLIT_FRAMES`` take a quarter of their 1x1 count per device, and no
+    case takes less than a quarter of its 1x1 count."""
     one = _port_flops(1, 1)
     four = _port_flops(2, 2)
-    for arch in ARCHS:
-        cfg = reduced(get_arch(arch))
-        H, hd = cfg.n_heads, cfg.resolved_head_dim
-        n_flash = cfg.n_layers          # every layer: causal, no window
-        for mode in MODES:
+    for arch, rkw, over in ARCHS:
+        cfg = _cfg(arch, rkw, over)
+        for mode in _shapes(arch):
             key = f"{arch}/{mode}"
-            got, flash = one[key]
-            want = reference_flops[f"1x1/{key}"]
+            rec, frames, vec, rows = one[key]
+            got = rec["flops_corrected"]
+            want = reference_flops[f"1x1/{key}"]["flops"]
+            flash = sum(f for (op, _, _), (_, f) in rows.items()
+                        if op == "flash_attention")
+            gap = 0.0
+            if mode == "long":
+                assert vec > 0, key
+                got -= vec
+            else:
+                assert vec == 0, key
+            scan = 0.0
+            if mode == "train" and cfg.mamba is not None:
+                want_rows, scan = _scan_backward(cfg, B)
+                assert {s: n for (_, s, who), (n, _) in rows.items()
+                        if who == "models/mamba.py:_ssd_chunk_scan "
+                        "(backward)"} == want_rows, key
+            got += scan
             if mode == "prefill":
-                chunked = 2 * (2 * B * H * T * T * hd)
-                formula = 4 * B * H * hd * (T * (T + 1) // 2)
-                assert flash == n_flash * formula, key
-                assert want - got == n_flash * (chunked - formula), key
+                formula, gap = _prefill_flash(cfg, B)
+                assert flash == formula, (key, flash, formula)
+                assert want - got == gap, (key, got, want, gap)
             else:
                 assert flash == 0, key
                 assert abs(got - want) <= FLOP_REL * want, (key, got, want)
-            got4 = four[key][0]
-            assert got4 * 4 >= got, (key, got4, got)
-            print(f"{key}: 1x1 port {got:.6e} ref {want:.6e}; 2x2 per "
-                  f"device port {got4:.6e} ref "
-                  f"{reference_flops[f'2x2/{key}']:.6e}")
+            rec4, frames4, _, _ = four[key]
+            got4 = rec4["flops_corrected"]
+            assert got4 * 4 >= rec["flops_corrected"], (key, got4)
+            for frame in SPLIT_FRAMES.get((arch, mode), ()):
+                f1, f4 = ((frame,), (frame,)) if isinstance(frame, str) \
+                    else frame
+                n1 = sum(frames.get(f, 0.0) for f in f1)
+                n4 = sum(frames4.get(f, 0.0) for f in f4)
+                assert all(frames.get(f, 0.0) > 0 for f in f1), (key, f1)
+                assert n4 * 4 == n1, (key, f4, n4, n1)
+            print(f"{key}: 1x1 port {rec['flops_corrected']:.6e} ref "
+                  f"{want:.6e} (C6 gap {gap:.4e}, matrix-vector "
+                  f"{vec:.4e}, scan {scan:.4e}); 2x2 per device port "
+                  f"{got4:.6e} ref "
+                  f"{reference_flops[f'2x2/{key}']['flops']:.6e}")
+
+
+def test_output_bytes_are_the_references_less_a_pointer_a_leaf(
+        reference_flops):
+    """Every case's output bytes a device, on 1x1 and 2x2, plus 8 B for
+    each leaf of the step's output in the JAX package (its compiled
+    output is a tuple whose table holds a pointer a leaf; the port's
+    outputs carry no such table) equal the reference's
+    ``output_size_in_bytes``."""
+    for data, model in ((1, 1), (2, 2)):
+        with _fake_group(data * model):
+            mesh = _cpu_mesh(data, model)
+            pol = sh.ShardingPolicy(batch_axes=("data",))
+            for arch, rkw, over in ARCHS:
+                cfg = _cfg(arch, rkw, over)
+                for mode, shape in _shapes(arch).items():
+                    want = reference_flops[f"{data}x{model}/{arch}/{mode}"]
+                    rec = dryrun.trace_step(cfg, shape, mesh, pol,
+                                            device="cpu")["record"]
+                    got = rec["memory_analysis"]["output_size_in_bytes"]
+                    assert got + 8 * want["leaves"] == want["out_bytes"], (
+                        data, model, arch, mode, got, want)
 
 
 REFERENCE_MOE = textwrap.dedent("""
@@ -254,12 +433,12 @@ GLOO_STEPS = textwrap.dedent("""
     from repro_torch.launch import dryrun, mesh as pm, shardings as sh
     from repro_torch.launch import steps
     from repro_torch.sharding_ctx import settle
-    rank, port, arch, out, data, B = (int(sys.argv[1]), sys.argv[2],
-                                      sys.argv[3], sys.argv[4],
-                                      int(sys.argv[5]), int(sys.argv[6]))
+    rank, port, arch, out, data, B, model = (
+        int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4],
+        int(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7]))
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=2, rank=rank)
-    mesh = pm.make_host_mesh(data, 2 // data, device="cpu")
+                            world_size=data * model, rank=rank)
+    mesh = pm.make_host_mesh(data, model, device="cpu")
     cfg = reduced(get_arch(arch))
     if arch == "whisper-base":
         # 3 heads on 2 devices, 63 frames: the queries' split, padded
@@ -321,33 +500,64 @@ DECODE_TOL = 1e-4
 
 # (arch, data axis size of the two ranks, batch): batch 1 on (2, 1) is a
 # batch the data axis cannot split, whose weights keep their FSDP split
+# and whose decode splits its q heads over the idle data axis; on (1, 2)
+# the SSD's C.B^T splits over the state channels, the MoE router's
+# decode product over the experts and its weight gradient by columns,
+# and Jamba's one kv head takes the head-dim split
 GLOO_CASES = (("qwen1.5-0.5b", 1, 2), ("mamba2-1.3b", 1, 2),
               ("qwen3-moe-30b-a3b", 1, 2), ("llama4-scout-17b-a16e", 1, 2),
               ("whisper-base", 1, 2), ("mamba2-1.3b", 2, 2),
               ("qwen3-moe-30b-a3b", 2, 2), ("mamba2-1.3b", 2, 1),
-              ("qwen3-moe-30b-a3b", 2, 1))
+              ("qwen3-moe-30b-a3b", 2, 1), ("jamba-1.5-large-398b", 1, 2),
+              ("jamba-1.5-large-398b", 2, 1), ("qwen1.5-0.5b", 2, 1))
 
 
-@pytest.fixture(scope="module")
-def gloo_runs(tmp_path_factory):
-    """Every case's pair of gloo ranks, started together: case -> the
-    npz its rank 0 wrote."""
-    d = tmp_path_factory.mktemp("gloo")
+# (arch, data axis size, batch) on a (data, 2) mesh of four gloo ranks:
+# Jamba's one-row decode splits its one kv head's dim over the model axis
+# and its q heads over the idle data axis at once
+GLOO4_CASES = (("jamba-1.5-large-398b", 2, 1),)
+
+
+def _gloo(d, cases, model):
+    """Every case's gloo ranks on a (data, ``model(data)``) mesh, started
+    together: case -> the npz its rank 0 wrote."""
     procs, outs = [], {}
-    for arch, data, batch in GLOO_CASES:
+    for arch, data, batch in cases:
         port, out = _free_port(), d / f"{arch}-{data}-{batch}.npz"
         outs[arch, data, batch] = out
         procs += [subprocess.Popen([sys.executable, "-c", GLOO_STEPS,
                                     str(r), str(port), arch, str(out),
-                                    str(data), str(batch)],
+                                    str(data), str(batch),
+                                    str(model(data))],
                                    env=_src_env(OMP_NUM_THREADS="1"),
                                    stdout=subprocess.PIPE,
                                    stderr=subprocess.PIPE, text=True)
-                  for r in range(2)]
+                  for r in range(data * model(data))]
     for p in procs:
         _, err = p.communicate(timeout=600)
         assert p.returncode == 0, err[-3000:]
     return outs
+
+
+@pytest.fixture(scope="module")
+def gloo_runs(tmp_path_factory):
+    return _gloo(tmp_path_factory.mktemp("gloo"), GLOO_CASES,
+                 lambda data: 2 // data)
+
+
+@pytest.fixture(scope="module")
+def gloo4_runs(tmp_path_factory):
+    return _gloo(tmp_path_factory.mktemp("gloo4"), GLOO4_CASES,
+                 lambda data: 2)
+
+
+@pytest.mark.parametrize("arch,data,rows", GLOO4_CASES)
+def test_four_gloo_ranks_give_the_mesh_free_path(arch, data, rows,
+                                                 gloo4_runs):
+    """As :func:`test_two_gloo_ranks_give_the_mesh_free_path` on a (2, 2)
+    mesh of four gloo ranks."""
+    _hold_to_plain(np.load(gloo4_runs[arch, data, rows]), arch,
+                   f"({data}, 2), batch {rows}", 4)
 
 
 @pytest.mark.parametrize("arch,data,rows", GLOO_CASES)
@@ -363,11 +573,18 @@ def test_two_gloo_ranks_give_the_mesh_free_path(arch, data, rows,
     whisper with 63 frames the queries' split, padded) equal the plain
     path's on the gathered params within ``STEP_TOL`` of each one's
     largest magnitude (the sums run in another order; decode within
-    ``DECODE_TOL``)."""
+    ``DECODE_TOL``).  The SSD's C.B^T split over the state channels, the
+    MoE router's decode product split over the experts and its weight
+    gradient by columns, and a one-row decode's q heads split over the
+    idle data axis (qwen1.5, and Jamba's one kv head) are among them."""
+    _hold_to_plain(np.load(gloo_runs[arch, data, rows]), arch,
+                   f"({data}, {2 // data}), batch {rows}", 2)
+
+
+def _hold_to_plain(z, arch, label, ranks):
     import dataclasses
     from torch import nn
     from repro_torch.models.model_api import Model
-    z = np.load(gloo_runs[arch, data, rows])
     cfg = reduced(get_arch(arch))
     if arch == "whisper-base":
         cfg = dataclasses.replace(reduced(get_arch(arch), d_model=96),
@@ -411,10 +628,9 @@ def test_two_gloo_ranks_give_the_mesh_free_path(arch, data, rows,
     gaps.append(close(z["loss"], loss.detach().numpy(), "loss"))
     for n, g in zip(names, grads):
         gaps.append(close(z["g/" + n], g.numpy(), n))
-    print(f"{arch} on ({data}, {2 // data}), batch {rows}: prefill, "
-          f"decode, loss and "
-          f"{len(names)} gradients on 2 gloo ranks within {max(gaps):.2e} "
-          f"of the plain path")
+    print(f"{arch} on {label}: prefill, decode, loss and {len(names)} "
+          f"gradients on {ranks} gloo ranks within {max(gaps):.2e} of the "
+          f"plain path")
 
 
 def _free_port() -> int:

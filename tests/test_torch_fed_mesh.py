@@ -370,14 +370,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_gloo_group_is_bit_equal_to_one_process(tmp_path):
+@pytest.mark.parametrize("world", [2, 4])
+def test_gloo_group_is_bit_equal_to_one_process(tmp_path, world):
+    """K = 8 clients over 2 or 4 gloo ranks (4: two clients a rank, the
+    four-card layout's form), each rank's state bit-equal to its share of
+    one process's after every round's gathers and sums."""
     x, y, xv, yv = _mesh_data(K)
     src = tmp_path / "data.npz"
     np.savez(src, x=x, y=y, xv=xv, yv=yv)
-    world, port, out = 2, _free_port(), tmp_path / "state"
+    port, out = _free_port(), tmp_path / "state"
     procs = [subprocess.Popen([sys.executable, "-c", GLOO, str(r),
                                str(world), str(port), str(src), str(out)],
-                              env=_src_env(), stdout=subprocess.PIPE,
+                              env=_src_env(OMP_NUM_THREADS="1"),
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for r in range(world)]
     for p in procs:
@@ -401,7 +406,7 @@ def test_gloo_group_is_bit_equal_to_one_process(tmp_path):
         else:
             got = np.concatenate([z[f] for z in ranks])
             assert got.dtype == w.dtype and np.array_equal(got, w), f
-    print(f"gloo 2x{K // world}: {s.sync_count} syncs, {s.ens_count} "
+    print(f"gloo {world}x{K // world}: {s.sync_count} syncs, {s.ens_count} "
           f"learners, bit-equal to one process")
 
 
