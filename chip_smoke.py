@@ -23,8 +23,8 @@ nonzero (there is no CPU fall-back):
    path's shape, a large one and the path's shape on the 4-byte route,
    bit-equal to the CPU emulation of their order
    (``ref.stump_vote_in_kernel_order``) and to each other, lanes bit-equal
-   to the plain version's, each launcher variant (a copy of
-   ``stump_vote.cu`` with one choice fixed, built into ``build/``) timed
+   to the plain version's, each launcher variant (one launch knob of
+   ``stump_vote.cu``'s launchers fixed, ``STUMP_VARIANTS``) timed
    and held to the shipped bits, columns alone and packed bit-equal, and
    the wrappers' host work by part; ``dist_update`` at the kernel API
    path's N and a large N with every device operation of a call traced
@@ -107,7 +107,8 @@ nonzero (there is no CPU fall-back):
    edge_vision enhanced with eq. 1 and the two beyond-paper interval
    controllers, every interval within [i_min, i_max];
 13. the policy-driven serving launcher: ``KernelPolicy.calibrate_call``
-   on the card (both backends) at each tenant's first fit (edge_vision,
+   on the card (``torch`` once, ``cuda`` over its launch grid, medians
+   by backend and layout) at each tenant's first fit (edge_vision,
    iot) and at phase 5's commonest stump vote shapes, each call held cuda
    against torch (the scan bit-equal, the votes within rtol/atol 1e-5,
    the lanes bit-equal), saved and loaded back; then
@@ -175,7 +176,26 @@ nonzero (there is no CPU fall-back):
    of 1 x 32,768, one decode step against its cache and one train step
    of 1 x 4,096, with their flash launches (24 / 0 / 0), logits and loss
    against the mesh-free path, counted FLOPs equal to the fake (1,1) dry
-   run's, ms a step, TFLOP/s and peak memory.
+   run's, ms a step, TFLOP/s and peak memory;
+18. the dispatcher's layout autotune (``dispatch.LAYOUT_GRIDS``): 18.1
+   every grid member of the eight kernels at PERF.md's main and large
+   shapes (flash in f32 and bf16) held to the plain version at phase 3's
+   tolerances and timed by the profiler, beside the launcher's own
+   choice and the fastest member (a member that cannot run a bucket must
+   be refused); 18.2 ``calibrate_call`` on both backends at the slice-1
+   path's buckets (edge_vision's first fit, phase 5's commonest stump
+   vote shapes, ``ensemble_vote`` (256, 8192), ``dist_update`` N 8,192,
+   phase 10's prefill flash shape; a winner other than ``{}`` must not
+   run more than 10% slower than ``{}`` on the card), the table saved,
+   loaded back and each call dispatched again: the recorded backend and
+   layout launched (``cuda_layout_choices``), the result within
+   tolerance; the same for a forced table of each bucket's first member
+   after ``{}``; 18.3 the slice-1 path under each loaded table:
+   edge_vision enhanced training with every pick and counter equal to
+   phase 4's, then the 512-request serve, plain and on the fused
+   fingerprint path, beside the same serve without a table (labels
+   equal, margins within rtol/atol 1e-5) and every stump vote call
+   launched again without it (lanes bit-equal).
 
 Phase 3 also holds ``flash_attention`` to its plain version at the LM
 path's shape, a large one, a ragged T, d 80 and 128, ``causal=False``,
@@ -190,7 +210,7 @@ and read just after it (the main path of phases 11 and 12 is their step
 its step 1, the six training runs, of phase 15 its step 1, the
 full-width ``train_loop``, of phase 16 each family's first ``generate``
 and its three training runs together, of phase 17 each traced real
-step of 17.2).
+step of 17.2, of phase 18 its step 18.3 under the calibrated table).
 The last lines are the kernels JSON, the card's ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -471,86 +491,38 @@ def check_kernels():
     return results
 
 
-# Launcher variants of stump_vote.cu: (the line of ``launch`` that makes
-# the choice, its replacement).  "deep"/"stream" fix the loads in flight
-# (a whole chunk / half a chunk), "one_stage" one stage a round, "wide"
-# the 128-column tile at every shape.
-STUMP_VARIANT_LINES = {
-    "deep": ("  const bool deep = B * tiles(C) <= sms;",
-             "  const bool deep = true;"),
-    "stream": ("  const bool deep = B * tiles(C) <= sms;",
-               "  const bool deep = false;"),
-    "one_stage": ("  const bool two = C < 4 && deep && a.T > kStageRows;",
-                  "  const bool two = false;"),
-    "wide": ("  while (C > 1 && B * tiles(C / 2) <= sms) C /= 2;", ""),
-}
-_STUMP_VARIANTS = {}
-
-
-def stump_variants() -> dict:
-    """Copies of ``stump_vote.cu`` with one launcher choice fixed
-    (``STUMP_VARIANT_LINES``), built side by side into
-    ``build/stump_vote_variants`` (one ``nvcc`` each, all started
-    together) on first call and bound with ``ctypes``."""
-    import ctypes
-    from repro_torch.kernels import build
-    if _STUMP_VARIANTS:
-        return _STUMP_VARIANTS
-    src = (build.CSRC / "stump_vote.cu").read_text()
-    out_dir = ROOT / "build" / "stump_vote_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (line, repl) in STUMP_VARIANT_LINES.items():
-        if line not in src:
-            raise AssertionError(f"stump_vote.cu: the {name} choice moved")
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(src.replace(line, repl))
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", str(cu), "-o",
-             str(out_dir / f"{name}.so")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} stump vote:\n{out}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for fn in ("stump_vote_launch", "stump_vote_fp_launch"):
-            getattr(lib, fn).argtypes = build.SIGNATURES[fn]
-        _STUMP_VARIANTS[name] = lib
-    return _STUMP_VARIANTS
+# (tile_c, deep, groups) of the stump vote launchers' own choice
+OWN_VOTE_LAUNCH = (0, -1, 0)
+# Launcher variants of stump_vote.cu, each one launch knob fixed (the
+# others the launcher's own): "deep"/"stream" fix the loads in flight (a
+# whole chunk / half a chunk), "one_stage" one stage a round, "wide" the
+# 128-column tile at every shape.
+STUMP_VARIANTS = {"deep": {"deep": 1}, "stream": {"deep": 0},
+                  "one_stage": {"groups": 1}, "wide": {"tile_c": 4}}
 
 
 def stump_variant_ms(args, want, want0, want1) -> dict:
     """Each launcher variant's device ms at these inputs, both kernels,
-    each held to the shipped kernels' bits (margins and lanes)."""
-    x, th, p, a = args
-    B, T, N = x.shape
-    stream = torch._C._cuda_getCurrentRawStream(0)
-    ptrs = (x.data_ptr(), th.data_ptr(), p.data_ptr(), a.data_ptr())
+    each held to the shipped kernels' bits (margins and lanes); the
+    variants are the launchers' knobs (``STUMP_VARIANTS``)."""
+    from repro_torch.kernels import ops
+    B, T, N = args[0].shape
     rows = {}
-    for name, lib in stump_variants().items():
-        out = torch.empty_like(want)
-        f0, f1 = torch.empty_like(want0), torch.empty_like(want1)
-
-        def plain():
-            if lib.stump_vote_launch(*ptrs, out.data_ptr(), B, T, N, stream):
-                raise RuntimeError(f"{name} stump vote launch failed")
-
-        def fp():
-            if lib.stump_vote_fp_launch(*ptrs, out.data_ptr(), f0.data_ptr(),
-                                        f1.data_ptr(), B, T, N, stream):
-                raise RuntimeError(f"{name} stump vote launch failed")
+    for name, knobs in STUMP_VARIANTS.items():
         rows[name] = {}
-        for kname, call in (("stump_vote_batched", plain),
-                            ("stump_vote_fp_batched", fp)):
-            out.zero_()
-            call()
+        for kname, fn in (("stump_vote_batched",
+                           ops._stump_vote_batched_cuda),
+                          ("stump_vote_fp_batched",
+                           ops._stump_vote_fp_batched_cuda)):
+            call = lambda fn=fn, knobs=knobs: fn(*args, **knobs)  # noqa: E731
+            got = call()
             torch.cuda.synchronize()
+            out = got[0] if isinstance(got, tuple) else got
             if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"{kname} {(B, T, N)}: the {name} "
                                      f"variant differs from the shipped bits")
             if kname == "stump_vote_fp_batched" and not (
-                    torch.equal(f0, want0) and torch.equal(f1, want1)):
+                    torch.equal(got[1], want0) and torch.equal(got[2], want1)):
                 raise AssertionError(f"{(B, T, N)}: the {name} variant's "
                                      f"lanes differ")
             rows[name][kname] = device_ms(call, 20, STUMP_KERNELS[kname])
@@ -620,12 +592,12 @@ def stump_host_work(args, fp: bool) -> dict:
         wrapper = lambda: ops.stump_vote_fp_batched(*args)   # noqa: E731
         launch = lambda: lib.stump_vote_fp_launch(           # noqa: E731
             *ptrs, out.data_ptr(), f0.data_ptr(), f1.data_ptr(), B, T, N,
-            stream)
+            *OWN_VOTE_LAUNCH, stream)
         alloc = lambda: ops._fp_outputs(B, N, dev)          # noqa: E731
     else:
         wrapper = lambda: ops.stump_vote_batched(*args)      # noqa: E731
         launch = lambda: lib.stump_vote_launch(              # noqa: E731
-            *ptrs, out.data_ptr(), B, T, N, stream)
+            *ptrs, out.data_ptr(), B, T, N, *OWN_VOTE_LAUNCH, stream)
         alloc = lambda: torch.empty((B, N), device=dev)      # noqa: E731
 
     def on_device():
@@ -652,7 +624,7 @@ def stump_host_work(args, fp: bool) -> dict:
                             load().stump_vote_fp_launch, xs.data_ptr(),
                             ts.data_ptr(), ps.data_ptr(), als.data_ptr(),
                             o.data_ptr(), g0.data_ptr(), g1.data_ptr(),
-                            B, T, N, ops._stream(xs))
+                            B, T, N, *OWN_VOTE_LAUNCH, ops._stream(xs))
             return o, g0, g1
         variants.update(three_empty=three_empty,
                         wrapper_before=wrapper_before)
@@ -917,7 +889,7 @@ def vote_host_work(m, a, batched: bool) -> dict:
     fn = (load().ensemble_vote_batched_launch if batched
           else load().ensemble_vote_launch)
     args = ((m.data_ptr(), a.data_ptr(), out.data_ptr()) + tuple(m.shape)
-            + (torch._C._cuda_getCurrentRawStream(0),))
+            + (-1, torch._C._cuda_getCurrentRawStream(0)))
 
     def checks():
         ops._on_cpu(m, a)
@@ -942,7 +914,7 @@ def vote_host_work(m, a, batched: bool) -> dict:
         from repro_torch.kernels.build import load
         with torch.cuda.device(mm.device):
             ops._launch(key, getattr(load(), key + "_launch"), mm.data_ptr(),
-                        aa.data_ptr(), res.data_ptr(), *m.shape,
+                        aa.data_ptr(), res.data_ptr(), *m.shape, -1,
                         ops._stream(mm))
         return res
     key = "ensemble_vote_batched" if batched else "ensemble_vote"
@@ -955,42 +927,13 @@ def vote_host_work(m, a, batched: bool) -> dict:
         "checks": checks})
 
 
-VOTE_DEPTH_LINE = "  const bool deep = B * tiles <= sms;"
-
-
 def vote_depths(gen) -> dict:
     """Device ms of the vote kernel at each load depth, at the four phase-3
-    shapes: copies of ``ensemble_vote.cu`` with the launcher's depth
-    choice replaced by a constant (a whole chunk a round, or half a chunk
-    at two blocks an SM) are built side by side into ``build/vote_depth``
-    and launched through ``ctypes``; each gives the shipped kernel's bits.
-    The shipped launcher picks the first where the column tiles are at
-    most one an SM."""
-    import ctypes
-    from repro_torch.kernels import build, ops
-    src = (build.CSRC / "ensemble_vote.cu").read_text()
-    if VOTE_DEPTH_LINE not in src:
-        raise AssertionError("ensemble_vote.cu: the depth choice moved")
-    out_dir = ROOT / "build" / "vote_depth"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, value in (("deep", "true"), ("stream", "false")):
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(src.replace(VOTE_DEPTH_LINE,
-                                  f"  const bool deep = {value};"))
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", str(cu), "-o",
-             str(out_dir / f"{name}.so")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} vote:\n{out}")
-        fn = ctypes.CDLL(str(out_dir / f"{name}.so")
-                         ).ensemble_vote_batched_launch
-        fn.argtypes = build.SIGNATURES["ensemble_vote_batched_launch"]
-        fns[name] = fn
+    shapes: the launcher's ``deep`` knob set to a whole chunk a round or
+    half a chunk at two blocks an SM; each gives the shipped kernel's
+    bits.  The launcher's own choice is the first where the column tiles
+    are at most one an SM."""
+    from repro_torch.kernels import ops
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for B, T, N in ((2, 300, 64), (8, 1024, 4096), (1, 256, 8192),
@@ -999,16 +942,10 @@ def vote_depths(gen) -> dict:
         a = torch.rand((B, T), generator=gen, device="cuda")
         want = ops.ensemble_vote_batched(m, a)
         row = {"shipped": "deep" if B * -(-N // 128) <= sms else "stream"}
-        for name, fn in fns.items():
-            out = torch.empty_like(want)
-            stream = torch._C._cuda_getCurrentRawStream(0)
-
-            def call():
-                rc = fn(m.data_ptr(), a.data_ptr(), out.data_ptr(), B, T, N,
-                        stream)
-                if rc != 0:
-                    raise RuntimeError(f"{name} vote: CUDA error {rc}")
-            call()
+        for name, deep in (("deep", 1), ("stream", 0)):
+            call = lambda deep=deep: ops._ensemble_vote_batched_cuda(  # noqa
+                m, a, deep=deep)
+            out = call()
             torch.cuda.synchronize()
             if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"vote {(B, T, N)}: {name} depth differs")
@@ -1471,9 +1408,10 @@ def flash_sass() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)"
-                          r"Li(\d+)E", line)
+                          r"Li(\d+)ELi(\d+)E", line)
             name = None if m is None else (
-                "float" if m.group(1) == "f" else "bf16", int(m.group(2)))
+                "float" if m.group(1) == "f" else "bf16", int(m.group(2)),
+                int(m.group(3)))
             if name:
                 counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name:
@@ -1481,12 +1419,13 @@ def flash_sass() -> None:
                 counts[name][op] += f" {op}." in line
     if not counts:
         raise AssertionError("sass: no flash_attention_kernel in the library")
-    for (dtype, D), c in sorted(counts.items()):
-        log(f"sass flash_attention_kernel<{dtype}, {D}>: "
+    for (dtype, D, NS), c in sorted(counts.items()):
+        log(f"sass flash_attention_kernel<{dtype}, {D}, {NS} stages>: "
             f"HGMMA={c['HGMMA']} HMMA={c['HMMA']}")
         if c["HGMMA" if dtype == "bf16" else "HMMA"] == 0:
             raise AssertionError(f"sass: flash_attention_kernel<{dtype}, "
-                                 f"{D}> has no tensor-core instruction")
+                                 f"{D}, {NS}> has no tensor-core "
+                                 f"instruction")
 
 
 # ------------------------------------------------------------ phase 4
@@ -1593,6 +1532,11 @@ def first_split(cfg, data, mode, card_fits, **engine_kw):
     return None
 
 
+# phase 4's runs, (domain, mode) -> (metrics, each fit's stump key): the
+# runs phase 18.3 repeats under a calibrated table
+SLICE1: dict = {}
+
+
 def train(registry):
     from repro_torch import obs
     from repro_torch.configs.paper_fedboost import FedBoostConfig
@@ -1624,6 +1568,7 @@ def train(registry):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs.append((domain, mode, cfg, m, log_))
+        SLICE1[(domain, mode)] = (m, [_key(p) for *_, p in log_.fits])
         log(f"train {domain} {mode} {rounds} rounds on cuda: "
             f"bytes={m.total_bytes} msgs={m.n_messages} syncs={m.n_syncs} "
             f"merged={m.learners_merged} published={m.snapshots_published} "
@@ -1991,7 +1936,7 @@ def check_scan_batched():
             stream = torch._C._cuda_getCurrentRawStream(0)
 
             def call(ptrs=ptrs, vec=vec, route=route):
-                rc = fn(*ptrs, B, N, F, T, vec, stream)
+                rc = fn(*ptrs, B, N, F, T, vec, 0, 0, stream)
                 if rc != 0:
                     raise RuntimeError(f"{route} scan: CUDA error {rc}")
             call()
@@ -3763,19 +3708,26 @@ def policy_path(serve_shapes, fleet_launches) -> dict:
     cal = KernelPolicy()
     for name, args in calls:
         bucket, samples = cal.calibrate_call(name, *args, reps=20)
-        med = {b: statistics.median(ts) * 1e3 for (b, _), ts in
-               samples.items()}
-        win = cal.table[(name, bucket)].backend
+        med = {key: statistics.median(ts) * 1e3
+               for key, ts in samples.items()}
+        win = cal.table[(name, bucket)]
         err = hold_backends(name, args)
         log(f"policy 13.1: calibrate {name} at {tuple(args[0].shape)} "
             f"(bucket {dispatch.bucket_label(bucket)}): median ms "
-            + " ".join(f"{b}={ms:.4f}" for b, ms in sorted(med.items()))
-            + f" -> {win}" + ("" if win == "cuda" else
-                              " (finding: the plain version won)")
+            + " ".join(f"{b}[{dispatch.layout_label(lay)}]={ms:.4f}"
+                       for (b, lay), ms in sorted(med.items()))
+            + f" -> {win.backend} [{dispatch.layout_label(win.layout)}]"
+            + ("" if win.backend == "cuda" else
+               " (finding: the plain version won)")
             + ("; cuda bit-equal to torch" if name == "stump_scan" else
                f"; cuda within {TOL} of torch, max err {err:.3g}")
             + f" | {nvidia_smi()}")
-        if sorted(med) != dispatch.available_backends(CARD):
+        want = {("torch", ())} | {
+            ("cuda", dispatch.layout_key(lay))
+            for lay in dispatch.LAYOUT_GRIDS[name]
+            if dispatch.layout_applies(name, bucket, lay)}
+        if sorted({b for b, _ in med}) != \
+                dispatch.available_backends(CARD) or set(med) != want:
             raise AssertionError(f"calibrate {name}: measured {sorted(med)}")
     path = cal.save(str(POLICY_DIR / "calibration.json"))
     back = KernelPolicy.load(path)
@@ -5358,6 +5310,469 @@ def dry_run() -> dict:
     return {"dryrun": recs, "real": real}
 
 
+# ------------------------------------------------------------ phase 18
+LAYOUT_DIR = ROOT / "build" / "layouts"
+# PERF.md section 6's main and large shapes of each kernel (flash in f32
+# and bf16, causal)
+LAYOUT_SHAPES = {
+    "stump_scan": ((333, 64, 16), (24000, 64, 16)),
+    "stump_scan_batched": ((100000, 4, 48, 16), (4096, 333, 64, 16)),
+    "ensemble_vote": ((256, 8192), (1024, 65536)),
+    "ensemble_vote_batched": ((2, 300, 64), (8, 1024, 4096)),
+    "stump_vote_batched": ((2, 300, 64), (8, 1024, 4096)),
+    "stump_vote_fp_batched": ((2, 300, 64), (8, 1024, 4096)),
+    "dist_update": ((8192,), (4_194_304,)),
+    "flash_attention": ((4, 16, 512, 64), (2, 16, 8192, 64)),
+}
+LAYOUT_REPS = 10                # profiled calls a grid member
+LAYOUT_REQUESTS = 512           # the slice-1 path's serve (phase 6's)
+
+
+def layout_inputs(gen, kernel, shape, dtype=torch.float32):
+    """Random card inputs of ``kernel`` at ``shape``: ``(args, kwargs)``
+    as its ops wrapper takes them."""
+    if kernel == "stump_scan":
+        return scan_inputs(gen, *shape), {}
+    if kernel == "stump_scan_batched":
+        B, N, F, T = shape
+        x = torch.randn((B, N, F), generator=gen, device=CARD)
+        y = torch.where(torch.rand((B, N), generator=gen, device=CARD) < 0.5,
+                        1.0, -1.0)
+        w = torch.rand((B, N), generator=gen, device=CARD)
+        rows = torch.randint(0, N, (B, F, T), generator=gen, device=CARD)
+        thr = torch.gather(x.transpose(1, 2), 2, rows).contiguous()
+        return (x, y, w, thr), {}
+    if kernel.startswith("ensemble_vote"):
+        m = torch.rand(shape, generator=gen, device=CARD) * 2 - 1
+        return (m, torch.rand(shape[:-1], generator=gen, device=CARD)), {}
+    if kernel.startswith("stump_vote"):
+        return vote_inputs(gen, *shape, shape[1] // 10), {}
+    if kernel == "dist_update":
+        return (0.7, *dist_inputs(gen, shape[0])), {}
+    return tuple(torch.randn(shape, generator=gen, device=CARD).to(dtype)
+                 for _ in range(3)), {"causal": True}
+
+
+def vote_l1(kernel, args, large: bool):
+    """Phase 3's slack for a vote's long sums (``close``'s ``l1``, the sum
+    of the summed terms' magnitudes, sum |alpha| a column): for
+    ``ensemble_vote`` at every shape and for the batched votes at their
+    large shape; else None (rtol/atol ``TOL``)."""
+    if kernel == "ensemble_vote":
+        return args[1].abs().sum()
+    if large and kernel in ("ensemble_vote_batched", *STUMP_KERNELS):
+        return args[-1].abs().sum(1, keepdim=True)
+    return None
+
+
+def layout_close(kernel, got, want, label, l1=None) -> float:
+    """The largest difference of a launch from the plain version, held at
+    phase 3's tolerances: the scans bit-equal, the votes within rtol/atol
+    ``TOL`` (or ``TOL`` of ``l1``, :func:`vote_l1`) and the lanes
+    bit-equal, ``dist_update``'s D' within 1e-6 and Z within 1e-6
+    relative, flash within 2e-4 (f32) or 3e-2 (bf16)."""
+    if kernel == "dist_update":
+        err = float((got[0] - want[0]).abs().max())
+        ok = err <= 1e-6 and float((got[1] - want[1]).abs() / want[1]) <= 1e-6
+    elif isinstance(got, tuple):
+        err = float((got[0] - want[0]).abs().max())
+        ok = close(got[0], want[0], l1) and all(
+            torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        if kernel.startswith("stump_scan"):
+            ok = torch.equal(got, want)
+        elif kernel == "flash_attention":
+            tol = 2e-4 if got.dtype == torch.float32 else 3e-2
+            ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol))
+        else:
+            ok = close(got, want, l1)
+    if not ok:
+        raise AssertionError(f"layout {label}: max err {err} beyond the "
+                             f"plain version's tolerance")
+    return err
+
+
+def member_ms(call) -> float:
+    """A grid member's device ms: the median of three profiled traces of
+    ``LAYOUT_REPS`` calls each, leaving out a trace that holds no kernel.
+    Late in a full run one trace now and then drops a call's kernels or
+    halves their time (on the H100, two identical launches measured 2.1x
+    apart, one trace each)."""
+    runs = [device_ms(call, LAYOUT_REPS, None) for _ in range(3)]
+    good = [t for t in runs if math.isfinite(t)]
+    return statistics.median(good) if good else float("nan")
+
+
+def layout_grid_case(gen, kernel, shape, dtype, large, smi) -> dict:
+    """18.1 at one shape: every grid member of ``kernel`` that applies to
+    the shape's bucket launched, held to the plain version and timed on
+    the card (``device_ms``); a member that does not apply must be
+    refused.  Returns the members' device ms, the launcher's own choice's
+    and the fastest."""
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    fn = getattr(ops, kernel)
+    args, kw = layout_inputs(gen, kernel, shape, dtype)
+    want = fn(*args, backend="torch", policy=KernelPolicy(env_var=None),
+              **kw)
+    bucket = dispatch.bucket_of(kernel, args, kw)
+    l1 = vote_l1(kernel, args, large)
+    pol = KernelPolicy(env_var=None)
+    label = f"{kernel} {shape}" + (
+        f" {str(dtype)[6:]}" if kernel == "flash_attention" else "")
+    ms, skipped, worst = {}, [], 0.0
+    for member in dispatch.LAYOUT_GRIDS[kernel]:
+        name = dispatch.layout_label(member)
+        call = lambda m=member: fn(*args, backend="cuda",  # noqa: E731
+                                   policy=pol, **kw, **m)
+        if not dispatch.layout_applies(kernel, bucket, member):
+            try:
+                call()
+            except RuntimeError as exc:
+                skipped.append(name)
+                log(f"layout 18.1: {label} [{name}] does not apply to "
+                    f"bucket {dispatch.bucket_label(bucket)}: refused "
+                    f"({exc})")
+                continue
+            raise AssertionError(f"layout {label} [{name}]: launched where "
+                                 f"it does not apply")
+        before = ops.LAUNCHES[kernel]
+        got = call()
+        torch.cuda.synchronize()
+        if ops.LAUNCHES[kernel] != before + 1:
+            raise AssertionError(f"layout {label} [{name}]: not one launch")
+        worst = max(worst, layout_close(kernel, got, want,
+                                        f"{label} [{name}]", l1))
+        ms[name] = member_ms(call)
+    own = ms["-"]
+    fastest = min((k for k in ms if math.isfinite(ms[k])), key=ms.get)
+    log(f"layout 18.1: {label}: device ms "
+        + " ".join(f"[{k}]={v:.4f}" for k, v in ms.items())
+        + f"; own {own:.4f}, fastest [{fastest}] {ms[fastest]:.4f} "
+        f"({own / ms[fastest]:.3f}x); max err {worst:.3g} | {smi}")
+    return {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms,
+            "own_ms": own, "fastest": fastest, "fastest_ms": ms[fastest],
+            "skipped": skipped, "max_abs_err": worst}
+
+
+def layout_grids(smi) -> dict:
+    """18.1: every grid member of the eight kernels at PERF.md's main and
+    large shapes (flash in f32 and bf16)."""
+    gen = torch.Generator(device=CARD).manual_seed(18)
+    out = {}
+    for kernel, shapes in LAYOUT_SHAPES.items():
+        dtypes = ((torch.float32, torch.bfloat16)
+                  if kernel == "flash_attention" else (torch.float32,))
+        out[kernel] = [layout_grid_case(gen, kernel, shape, dtype,
+                                        shape == shapes[-1], smi)
+                       for shape in shapes for dtype in dtypes]
+        torch.cuda.empty_cache()
+    return out
+
+
+def layout_calls(stump_shapes) -> list:
+    """18.2's calls, on the slice-1 path's buckets: edge_vision's first
+    fit, phase 5's commonest shape of each stump vote, ``ensemble_vote``
+    at (256, 8192), ``dist_update`` at N 8,192 and phase 10's prefill
+    flash shape (f32, causal).  Each ``(kernel, args, kwargs)``."""
+    from repro_torch.data import make_domain_data
+    from repro_torch.models.weak import stump_thresholds
+    from repro_torch.sim.scenarios import DOMAINS
+    x, y = make_domain_data(DOMAINS["edge_vision"], seed=0)["clients"][0]
+    x, y = torch.from_numpy(x).to(CARD), torch.from_numpy(y).to(CARD)
+    w = torch.full((x.shape[0],), 1.0 / x.shape[0], device=CARD)
+    calls = [("stump_scan", (x, y, w, stump_thresholds(x)), {})]
+    gen = torch.Generator(device=CARD).manual_seed(182)
+    for name in STUMP_KERNELS:
+        (B, T, N), _ = stump_shapes[name].most_common(1)[0]
+        calls.append((name, vote_inputs(gen, B, T, N, 0), {}))
+    for kernel, shape in (("ensemble_vote", (256, 8192)),
+                          ("dist_update", (8192,)),
+                          ("flash_attention", (LM_BATCH, 16, LM_PROMPT, 64))):
+        args, kw = layout_inputs(gen, kernel, shape)
+        calls.append((kernel, args, kw))
+    return calls
+
+
+def layout_winner_on_card(name, args, kw, win, smi) -> None:
+    """A recorded winner other than ``{}`` timed on the card beside ``{}``
+    at the call's own inputs (device ms, as 18.1 times them): it fails the
+    phase where the card runs it more than 10% slower, the band within
+    which 18.1 finds two launches of one configuration."""
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    fn, pol = getattr(ops, name), KernelPolicy(env_var=None)
+    own = member_ms(lambda: fn(*args, backend="cuda", policy=pol, **kw))
+    ms = member_ms(lambda: fn(*args, backend="cuda", policy=pol, **kw,
+                              **dict(win.layout)))
+    label = dispatch.layout_label(win.layout)
+    if not ms <= 1.1 * own:
+        raise AssertionError(f"layout 18.2 {name}: winner [{label}] runs "
+                             f"{ms:.4f} ms on the card against the "
+                             f"launcher's own {own:.4f}")
+    log(f"layout 18.2: {name} winner [{label}] on the card {ms:.4f} ms, "
+        f"own {own:.4f} | {smi}")
+
+
+def layout_dispatch_again(calls, back, what) -> None:
+    """Each call dispatched under the loaded table ``back``: the backend
+    and the CUDA layout launched are the entry's, the result within the
+    plain version's tolerance."""
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    for name, args, kw in calls:
+        fn = getattr(ops, name)
+        bucket = dispatch.bucket_of(name, args, kw)
+        entry = back.table[(name, bucket)]
+        before = ops.LAUNCHES[name]
+        got = fn(*args, policy=back, **kw)
+        want = fn(*args, backend="torch", policy=KernelPolicy(env_var=None),
+                  **kw)
+        torch.cuda.synchronize()
+        used = back.cuda_layout_choices[(name, bucket)]
+        ran = ops.LAUNCHES[name] - before
+        if (back.choices[(name, bucket)] != entry.backend
+                or used != (dict(entry.layout) if entry.backend == "cuda"
+                            else {})
+                or ran != (entry.backend == "cuda")):
+            raise AssertionError(f"layout 18.2 {name} ({what}): table "
+                                 f"{entry}, ran "
+                                 f"{back.choices[(name, bucket)]} "
+                                 f"[{dispatch.layout_label(used)}], "
+                                 f"{ran} launches")
+        err = layout_close(name, got, want, f"18.2 {name}",
+                           vote_l1(name, args, False))
+        log(f"layout 18.2: {name} under the loaded {what} table: "
+            f"{entry.backend} [{dispatch.layout_label(used)}] as recorded, "
+            f"{ran} launch, max err {err:.3g}")
+
+
+def layout_calibrate(stump_shapes, smi) -> tuple:
+    """18.2: ``calibrate_call`` on both backends at :func:`layout_calls`
+    (a winner other than ``{}`` also timed on the card,
+    :func:`layout_winner_on_card`), the table saved and loaded back, and
+    each call dispatched again under it (:func:`layout_dispatch_again`);
+    then the same for a forced table, which records at each call's bucket
+    the first member after ``{}`` that runs it, so that a layout reaches
+    the launch whatever calibration chose.  Returns both tables' paths
+    and the winners."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.dispatch import KernelPolicy
+    calls = layout_calls(stump_shapes)
+    cal = KernelPolicy(env_var=None)
+    forced = KernelPolicy(env_var=None)
+    winners = {}
+    for name, args, kw in calls:
+        bucket, samples = cal.calibrate_call(name, *args, reps=10, **kw)
+        med = {key: statistics.median(ts) * 1e3
+               for key, ts in samples.items()}
+        win = cal.table[(name, bucket)]
+        own = med[("cuda", ())]
+        winners[name] = {"bucket": list(bucket), "backend": win.backend,
+                         "layout": dict(win.layout),
+                         "median_ms": {f"{b}[{dispatch.layout_label(k)}]": v
+                                       for (b, k), v in med.items()}}
+        shape = tuple(args[name == "dist_update"].shape)
+        log(f"layout 18.2: calibrate {name} at {shape} "
+            f"(bucket {dispatch.bucket_label(bucket)}): median ms "
+            + " ".join(f"{b}[{dispatch.layout_label(k)}]={v:.4f}"
+                       for (b, k), v in sorted(med.items()))
+            + f" -> {win.backend} [{dispatch.layout_label(win.layout)}] "
+            f"{med[tuple(win)]:.4f} (own {own:.4f}) | {smi}")
+        if win.backend == "cuda" and win.layout:
+            layout_winner_on_card(name, args, kw, win, smi)
+        forced.record(name, bucket, "cuda", next(
+            m for m in dispatch.LAYOUT_GRIDS[name][1:]
+            if dispatch.layout_applies(name, bucket, m)))
+    paths = {}
+    for what, pol in (("calibrated", cal), ("forced", forced)):
+        paths[what] = pol.save(str(LAYOUT_DIR / f"{what}.json"))
+        back = KernelPolicy.load(paths[what])
+        if back.table != pol.table or back.measured_on != CARD:
+            raise AssertionError(f"layout {what} table round trip: "
+                                 f"{back.table}")
+        layout_dispatch_again(calls, back, what)
+        log(f"layout 18.2: {len(back.table)} entries saved to "
+            f"{Path(paths[what]).relative_to(ROOT)} and loaded back equal")
+    return paths, winners
+
+
+def recording_stump_votes():
+    """Wrap the two stump vote wrappers in ``ops`` so that each call keeps
+    a copy of its inputs and of its outputs; returns the list and a
+    function that restores the wrappers."""
+    from repro_torch.kernels import ops
+    calls = []
+    saved = {name: getattr(ops, name) for name in STUMP_KERNELS}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, [a.clone() for a in args],
+                          tuple(o.clone() for o in out)
+                          if isinstance(out, tuple) else out.clone()))
+            return out
+        return call
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    return calls, restore
+
+
+def layout_serve(registry, xt, policy_for):
+    """The slice-1 path's serve: ``LAYOUT_REQUESTS`` edge_vision requests
+    through ``EnsembleServer`` on the card, with phase 5's result cache
+    (which the fused fingerprint path needs); returns rid -> (label,
+    margin) and the stump vote calls it made."""
+    from repro_torch.serve import BatchConfig, EnsembleServer
+    server = EnsembleServer(registry, BatchConfig(max_batch=64,
+                                                  cache_capacity=4096),
+                            policy_for=policy_for, device=CARD)
+    calls, restore = recording_stump_votes()
+    responses = []
+    try:
+        t0 = time.perf_counter()
+        for i in range(LAYOUT_REQUESTS):
+            _, done = server.submit("edge_vision", xt[i % len(xt)],
+                                    now=time.perf_counter() - t0)
+            responses += done
+        responses += server.drain()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    if len(responses) != LAYOUT_REQUESTS:
+        raise AssertionError(f"{len(responses)} responses for "
+                             f"{LAYOUT_REQUESTS} requests")
+    return {r.rid: (r.label, r.margin) for r in responses}, calls
+
+
+def layout_slice1(path, what, datas, smi) -> dict:
+    """18.3: the slice-1 path under the loaded ``what`` table (the default
+    policy, and a copy of it on the fused fingerprint path): edge_vision
+    enhanced training, 25 rounds, every counter and every fit's stump
+    equal to phase 4's run (under the forced table at least one launch
+    must take the table's layout); then the 512-request serve, plain and
+    fused, each beside the same serve without a table (margins within
+    rtol/atol ``TOL``, labels equal), and every stump vote call of the
+    tuned serves launched again without a table (margins within ``TOL``,
+    lanes bit-equal).  Returns the launches of the path under the table
+    (counts zeroed just before its training run, read just after its
+    serves)."""
+    from repro_torch.configs.paper_fedboost import FedBoostConfig
+    from repro_torch.core import FederatedBoostEngine
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.serve import EnsembleRegistry
+    from repro_torch.sim.scenarios import DOMAINS
+    tuned = KernelPolicy.load(path)
+    fused = KernelPolicy.load(path)
+    fused.fused_fingerprint = True
+    dom = DOMAINS["edge_vision"]
+    cfg = FedBoostConfig(n_clients=dom.n_clients, n_rounds=25, seed=0,
+                         straggler_factor=dom.straggler_factor,
+                         dropout_prob=dom.dropout_prob,
+                         link_mbps=dom.link_mbps)
+    registry = EnsembleRegistry()
+    ops.reset_launches()
+    old = dispatch.set_default_policy(tuned)
+    try:
+        fits = FitLog()
+        eng = FederatedBoostEngine(cfg, datas["edge_vision"], "enhanced",
+                                   weak=fits.spec, device=CARD)
+        eng.attach_registry(registry, "edge_vision")
+        m = eng.run()
+        torch.cuda.synchronize()
+        xt = datas["edge_vision"]["test"][0]
+        tuned_runs = {label: layout_serve(registry, xt, pf) for label, pf in
+                      (("plain", None), ("fused", lambda t: fused))}
+    finally:
+        dispatch.set_default_policy(old)
+    launches = dict(ops.LAUNCHES)
+    for name in ("stump_scan", *STUMP_KERNELS):
+        if launches[name] <= 0:
+            raise AssertionError(f"layout 18.3 ({what}): {name} never "
+                                 f"launched")
+    m4, keys4 = SLICE1[("edge_vision", "enhanced")]
+    keys = ("uplink_bytes", "downlink_bytes", "n_messages", "n_syncs",
+            "learners_merged", "rounds_unavailable", "sim_time_s",
+            "final_val_error", "final_test_error")
+    diff = {k: (getattr(m, k), getattr(m4, k)) for k in keys
+            if getattr(m, k) != getattr(m4, k)}
+    picks = [_key(p) for *_, p in fits.fits]
+    if diff or picks != keys4:
+        raise AssertionError(f"layout 18.3: training under the {what} "
+                             f"table differs from phase 4's: {diff}, picks "
+                             f"equal {picks == keys4}")
+    tuned_layouts = {f"{k}@{dispatch.bucket_label(b)}":
+                     dispatch.layout_label(v)
+                     for pol in (tuned, fused)
+                     for (k, b), v in pol.cuda_layout_choices.items() if v}
+    if what == "forced" and not tuned_layouts:
+        raise AssertionError("layout 18.3: no launch of the path took the "
+                             "forced table's layout")
+    log(f"layout 18.3: edge_vision enhanced under the {what} table: "
+        f"{len(picks)} fits, every pick and counter equal to phase 4's "
+        f"(bytes={m.total_bytes} syncs={m.n_syncs} "
+        f"test_err={m.final_test_error:.4f}); tuned launches "
+        f"{tuned_layouts or 'none'}")
+    worst = 0.0
+    plain_fused = KernelPolicy(env_var=None, fused_fingerprint=True)
+    for label, pf in (("plain", None),
+                      ("fused", lambda t: plain_fused)):
+        got, calls = tuned_runs[label]
+        want, _ = layout_serve(registry, xt, pf)
+        for rid, (lab, margin) in got.items():
+            wl, wm = want[rid]
+            worst = max(worst, abs(margin - wm))
+            if lab != wl or abs(margin - wm) > TOL + TOL * abs(wm):
+                raise AssertionError(f"layout 18.3 {what} {label} rid "
+                                     f"{rid}: {lab} {margin} vs {wl} {wm}")
+        for name, args, out in calls:
+            again = getattr(ops, name)(*args, policy=KernelPolicy(
+                env_var=None))
+            layout_close(name, out, again, f"18.3 {label} {name}")
+        log(f"layout 18.3: {LAYOUT_REQUESTS}-request serve ({label}) "
+            f"under the {what} table: labels equal to the untuned serve's, "
+            f"margins within {TOL} (max {worst:.3g}); its "
+            f"{len(calls)} stump vote calls launched again without the "
+            f"table: margins within {TOL}, lanes bit-equal | {smi}")
+    return launches
+
+
+def layout_path(stump_shapes, datas) -> dict:
+    """Phase 18: the dispatcher's layout autotune on the card (18.1 the
+    grids, 18.2 calibration and the loaded tables, 18.3 the slice-1 path
+    under each).  Returns 18.1's results by kernel, 18.2's winners and
+    18.3's launches under the calibrated table."""
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    grids = layout_grids(smi)
+    log(f"layout 18.1: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    paths, winners = layout_calibrate(stump_shapes, smi)
+    log(f"layout 18.2: {time.perf_counter() - t1:.1f} s")
+    launches = {}
+    for what, path in paths.items():
+        t1 = time.perf_counter()
+        launches[what] = layout_slice1(path, what, datas, smi)
+        log(f"layout 18.3: launches under the {what} table "
+            f"{launches[what]}; {time.perf_counter() - t1:.1f} s")
+    for kernel, cases in grids.items():
+        for r in cases:
+            if r["own_ms"] > 1.1 * r["fastest_ms"]:
+                log(f"layout 18: finding: {kernel} {tuple(r['shape'])} "
+                    f"{r['dtype']}: [{r['fastest']}] {r['fastest_ms']:.4f} "
+                    f"ms beats the launcher's own {r['own_ms']:.4f} by "
+                    f"{r['own_ms'] / r['fastest_ms']:.3f}x")
+    return {"grids": grids, "winners": winners,
+            "launches": launches["calibrated"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5526,6 +5941,13 @@ def main() -> int:
     log(f"launches of flash_attention on the dry run's real steps: "
         f"{real_launches}; phase 17 took {time.perf_counter() - t0:.1f} s")
 
+    # the layout autotune: every grid, calibration, and the slice-1 path
+    # under the loaded table (its launches counted from just before 18.3
+    # to just after it)
+    t0 = time.perf_counter()
+    layouts = layout_path(stump_shapes, datas)
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "kernel_ms", "shape")
@@ -5549,6 +5971,10 @@ def main() -> int:
                 "family_launches": fam_launches,
                 "dryrun_real_launches": real_launches}
                if name == "flash_attention" else {}),
+            layouts=layouts["grids"][name],
+            layout_path_launches=layouts["launches"][name],
+            **({"calibrated": layouts["winners"][name]}
+               if name in layouts["winners"] else {}),
             **{k: v for k, v in main_r.items() if k not in MAIN_KEYS},
             **{label: r for label, r in kernel_results[name].items()
                if label != "main"}))

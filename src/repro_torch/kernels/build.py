@@ -31,19 +31,21 @@ _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
 # C argument types of every exported function, each returning an int (a
 # launcher its CUDA error); a launcher takes (pointers..., ints and
-# floats..., stream)
+# floats..., its launch knobs (see ops), stream)
 SIGNATURES = {
     "stump_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P],
-    "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-    "stump_vote_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "stump_vote_fp_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "ensemble_vote_batched_launch": [_P, _P, _P, _L, _I, _I, _P],
-    "ensemble_vote_launch": [_P, _P, _P, _I, _I, _P],
+    "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                  _I, _P],
+    "stump_vote_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "stump_vote_fp_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
+    "ensemble_vote_batched_launch": [_P, _P, _P, _L, _I, _I, _I, _P],
+    "ensemble_vote_launch": [_P, _P, _P, _I, _I, _I, _P],
     "dist_update_launch": [_P, _F, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _P],
+                               _I, _F, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -286,10 +286,10 @@ int launch(const float* alpha, float alpha_value, const float* D,
 // (ops.dist_split): `blocks` blocks of `threads` threads (a power of two,
 // 32..1024), `tile` float4 vectors a block (blocks * tile * 4 >= n), the
 // first `held` (<= tile, <= 14336) kept in shared memory; one cluster
-// (cluster = 1, blocks <= 8) or a cooperative grid (cluster = 0) with
-// `partials` holding `blocks` doubles of scratch.  One launch on `stream`;
-// returns its CUDA error (0 on success): 720 for a grid that cannot be
-// co-resident.
+// (cluster = 1, blocks <= 8, tile <= 1024: the route holds at most 8,192
+// vectors) or a cooperative grid (cluster = 0) with `partials` holding
+// `blocks` doubles of scratch.  One launch on `stream`; returns its CUDA
+// error (0 on success): 720 for a grid that cannot be co-resident.
 extern "C" int dist_update_launch(const void* alpha, float alpha_value,
                                   const void* D, const void* y, const void* h,
                                   void* out, void* z, void* partials,
@@ -300,7 +300,8 @@ extern "C" int dist_update_launch(const void* alpha, float alpha_value,
   if (blocks < 1 || tile < 1 || held < 0 || held > tile ||
       held > kMaxHeld || threads < 32 || threads > kMaxThreads ||
       (threads & (threads - 1)) != 0 || (long long)blocks * tile * 4 < n ||
-      (cluster ? blocks > kMaxCluster : partials == nullptr))
+      (cluster ? blocks > kMaxCluster || tile > kMaxThreads
+               : partials == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool vec = ((reinterpret_cast<uintptr_t>(D) |
                      reinterpret_cast<uintptr_t>(y) |

@@ -163,19 +163,27 @@ ensemble_vote_kernel(const float* __restrict__ margins,
     out[b * (size_t)N + col] = acc;
 }
 
+// deep: 1 loads a whole chunk in one round, 0 half a chunk at two blocks
+// an SM, -1 the launcher's own choice (deep where the tiles are at most
+// one block an SM); any other value is refused.  The bits do not depend
+// on it.
 int launch(const void* margins, const void* alphas, void* out, long long B,
-           int T, int N, void* stream) {
-  if (B < 0 || T < 0 || N < 0) return (int)cudaErrorInvalidValue;
+           int T, int N, int deep_knob, void* stream) {
+  if (B < 0 || T < 0 || N < 0 || deep_knob < -1 || deep_knob > 1)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || N == 0) return 0;
   const long long tiles = (N + kCols - 1) / kCols;
   if (B * tiles > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  bool deep = deep_knob == 1;
+  if (deep_knob < 0) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    deep = B * tiles <= sms;
+  }
   const bool vec = N % 4 == 0 && ((uintptr_t)margins & 15) == 0;
-  const bool deep = B * tiles <= sms;
   auto kernel = vec ? (deep ? ensemble_vote_kernel<true, true>
                             : ensemble_vote_kernel<true, false>)
                     : (deep ? ensemble_vote_kernel<false, true>
@@ -189,16 +197,18 @@ int launch(const void* margins, const void* alphas, void* out, long long B,
 }  // namespace
 
 // margins (B,T,N), alphas (B,T) -> out (B,N), all f32 and contiguous, on
-// the current device.  Returns the CUDA error of the launch (0 on success).
+// the current device; `deep` as launch() takes it.  Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int ensemble_vote_batched_launch(const void* margins,
                                             const void* alphas, void* out,
                                             long long B, int T, int N,
-                                            void* stream) {
-  return launch(margins, alphas, out, B, T, N, stream);
+                                            int deep, void* stream) {
+  return launch(margins, alphas, out, B, T, N, deep, stream);
 }
 
 // margins (T,N), alphas (T,) -> out (N,): the batched kernel at B = 1.
 extern "C" int ensemble_vote_launch(const void* margins, const void* alphas,
-                                    void* out, int T, int N, void* stream) {
-  return launch(margins, alphas, out, 1, T, N, stream);
+                                    void* out, int T, int N, int deep,
+                                    void* stream) {
+  return launch(margins, alphas, out, 1, T, N, deep, stream);
 }

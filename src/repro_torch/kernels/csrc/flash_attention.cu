@@ -74,6 +74,11 @@
 // K, V and their low planes), 224 KB at d 128 (32-row tiles, V split as it
 // is read).  One f32 block an SM: its nine warps cap a thread at 168
 // registers.
+//
+// Launch shapes.  The above is the launcher's own choice.  A caller (the
+// dispatcher's calibrated layout, `stages`) may ask for a bf16 ring of two
+// stages in place of three; f32 has its own two only.  Either is the same
+// kernel template, and every row sees the same k tiles in the same order.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,7 +96,7 @@ constexpr int kLine = 128;                      // bytes of a swizzled box row
 // warp; kMinBlocks blocks an SM.  The shared memory holds Q, then a ring of
 // kStages stages of K and V; in f32 also the low TF32 halves of Q (after Q)
 // and of each stage's K, and V where kSplitV (after V).
-template <typename T, int D>
+template <typename T, int D, int NS>
 struct Cfg {
   static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr int kBQ = kF32 ? 128 : 64;
@@ -99,9 +104,9 @@ struct Cfg {
   static constexpr int kWarps = kBQ / 16;
   static constexpr int kThreads = 32 * (kWarps + 1);
   static constexpr int kMinBlocks = kF32 ? 1 : D <= 64 ? 3 : 2;
-  // the K/V ring; bf16 frees a stage one tile later (P . V overlaps the
-  // next tile's softmax), so it keeps one more
-  static constexpr int kStages = kF32 ? 2 : 3;
+  // the K/V ring: the launcher's own is f32 2 and bf16 3, as bf16 frees a
+  // stage one tile later (P . V overlaps the next tile's softmax)
+  static constexpr int kStages = NS;
   static constexpr int kCols = kLine / (int)sizeof(T);   // columns per box
   static constexpr int kBoxes = D / kCols;
   static constexpr int kQ = kBQ * D * (int)sizeof(T);
@@ -468,13 +473,13 @@ struct Job {
 // runs on the tensor cores while the next tile's softmax runs on the CUDA
 // cores: S_j and P_{j-1} . V_{j-1} are issued together, and the wait for
 // the second comes after the softmax of S_j.
-template <int D>
+template <int D, int NS>
 __device__ __forceinline__ void consume_wgmma(uint8_t* smem, uint64_t* bars,
                                               __nv_bfloat16* out,
                                               long long o_st, const Job& job) {
-  using S = Cfg<__nv_bfloat16, D>;
+  using S = Cfg<__nv_bfloat16, D, NS>;
   static_assert(S::kBQ == 64, "one consumer warpgroup");
-  constexpr int BK = S::kBK, NS = S::kStages;
+  constexpr int BK = S::kBK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int first = job.q0;                       // the block's rows
   const int row0 = first + 16 * warp + (lane >> 2);
@@ -579,11 +584,11 @@ __device__ __forceinline__ void consume_wgmma(uint8_t* smem, uint64_t* bars,
 
 // f32: warpgroup wg owns q rows [64 wg, 64 wg + 64) of the tile for S, and
 // warp w the rows [16 w, 16 w + 16) of them for P . V
-template <int D>
+template <int D, int NS>
 __device__ __forceinline__ void consume_tf32(uint8_t* smem, uint64_t* bars,
                                              float* out, long long o_st,
                                              const Job& job) {
-  using S = Cfg<float, D>;
+  using S = Cfg<float, D, NS>;
   constexpr int BK = S::kBK;
   constexpr int kConsumers = 32 * S::kWarps;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -684,16 +689,16 @@ __device__ __forceinline__ void consume_tf32(uint8_t* smem, uint64_t* bars,
 }
 
 // ---------------------------------------------------------------- kernel
-template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<T, D>::kThreads,
-                                  Cfg<T, D>::kMinBlocks)
+template <typename T, int D, int NS>
+__global__ void __launch_bounds__(Cfg<T, D, NS>::kThreads,
+                                  Cfg<T, D, NS>::kMinBlocks)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        T* __restrict__ out, long long o_sb, long long o_sh,
                        long long o_st, int H, int group, int Tlen, int d,
                        int causal, float scale_log2) {
-  using S = Cfg<T, D>;
+  using S = Cfg<T, D, NS>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBars);
@@ -750,9 +755,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   }
   T* o = out + (long long)b * o_sb + (long long)h * o_sh;
   if constexpr (std::is_same<T, float>::value)
-    consume_tf32<D>(smem, bars, o, o_st, job);
+    consume_tf32<D, NS>(smem, bars, o, o_st, job);
   else
-    consume_wgmma<D>(smem, bars, o, o_st, job);
+    consume_wgmma<D, NS>(smem, bars, o, o_st, job);
 }
 
 // ------------------------------------------------------------------ host
@@ -811,11 +816,11 @@ int encode(CUtensorMap* map, const void* ptr, bool bf16, int B, int H, int T,
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
-template <typename T, int D>
+template <typename T, int D, int NS>
 int launch_d(const void* q, const void* k, const void* v, void* out,
              const long long* strides, int B, int H, int Hkv, int Tlen, int d,
              int causal, float scale_log2, cudaStream_t stream) {
-  using S = Cfg<T, D>;
+  using S = Cfg<T, D, NS>;
   const bool bf16 = !S::kF32;
   CUtensorMap tq, tk, tv;
   int rc;
@@ -829,7 +834,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !(asked >> dev & 1)) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+    err = cudaFuncSetAttribute(flash_attention_kernel<T, D, NS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                S::kBytes);
     if (err != cudaSuccess) return (int)err;
@@ -838,7 +843,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
   const long long blocks = (long long)B * H * ((Tlen + S::kBQ - 1) / S::kBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const long long* so = strides + 9;
-  flash_attention_kernel<T, D>
+  flash_attention_kernel<T, D, NS>
       <<<(unsigned)blocks, S::kThreads, S::kBytes, stream>>>(
           tq, tk, tv, (T*)out, so[0], so[1], so[2], H, H / Hkv, Tlen, d,
           causal, scale_log2);
@@ -852,29 +857,36 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
 // of q, k, v and out in that order, 12 values, each last stride 1.  Every
 // stride of an extent above 1 is a multiple of 16 bytes and q, k, v lie on
 // 16-byte boundaries (the tensor maps' rule; the wrapper pads a copy where
-// they do not).  d in 1..128; scale_log2 = log2(e) / sqrt(d).  Returns 0,
-// a CUDA error, or 1000 + the CUresult of a tensor map that failed to
-// encode.
+// they do not).  d in 1..128; scale_log2 = log2(e) / sqrt(d).  `stages`
+// is the K/V ring's depth (0: the launcher's own, bf16 3 and f32 2; bf16
+// also takes 2, any other is refused).  Returns 0, a CUDA error, or 1000 +
+// the CUresult of a tensor map that failed to encode.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out,
                                       const long long* strides, int B, int H,
                                       int Hkv, int Tlen, int d, int causal,
                                       int is_bf16, float scale_log2,
-                                      void* stream) {
+                                      int stages, void* stream) {
   if (B <= 0 || H <= 0 || Tlen <= 0) return 0;
   if (d < 1 || d > 128 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
+  const int ns = stages ? stages : is_bf16 ? 3 : 2;
   cudaStream_t s = (cudaStream_t)stream;
-#define FLASH_LAUNCH(T, D)                                                  \
-  return launch_d<T, D>(q, k, v, out, strides, B, H, Hkv, Tlen, d, causal, \
-                        scale_log2, s)
-  if (is_bf16) {
-    if (d <= 64) FLASH_LAUNCH(__nv_bfloat16, 64);
-    FLASH_LAUNCH(__nv_bfloat16, 128);
+#define FLASH_LAUNCH(T, D, NS)                                             \
+  return launch_d<T, D, NS>(q, k, v, out, strides, B, H, Hkv, Tlen, d,     \
+                            causal, scale_log2, s)
+  if (is_bf16 && ns == 3) {
+    if (d <= 64) FLASH_LAUNCH(__nv_bfloat16, 64, 3);
+    FLASH_LAUNCH(__nv_bfloat16, 128, 3);
   }
-  if (d <= 32) FLASH_LAUNCH(float, 32);
-  if (d <= 64) FLASH_LAUNCH(float, 64);
-  if (d <= 96) FLASH_LAUNCH(float, 96);
-  FLASH_LAUNCH(float, 128);
+  if (is_bf16 && ns == 2) {
+    if (d <= 64) FLASH_LAUNCH(__nv_bfloat16, 64, 2);
+    FLASH_LAUNCH(__nv_bfloat16, 128, 2);
+  }
+  if (is_bf16 || ns != 2) return (int)cudaErrorInvalidValue;
+  if (d <= 32) FLASH_LAUNCH(float, 32, 2);
+  if (d <= 64) FLASH_LAUNCH(float, 64, 2);
+  if (d <= 96) FLASH_LAUNCH(float, 96, 2);
+  FLASH_LAUNCH(float, 128, 2);
 #undef FLASH_LAUNCH
 }

@@ -434,17 +434,25 @@ extern "C" int stump_scan_launch(const void* x, const void* y, const void* w,
 
 // x (B,N,F), y (B,N), w (B,N), thr (B,F,T) -> err (B,F,T), all f32 and
 // contiguous, on the current device; `vec` the 16-byte route (T % 4 == 0,
-// thr and err 16-byte aligned).  Returns the CUDA error of the launch (0 on
-// success).
+// thr and err 16-byte aligned).  `threads` (a multiple of 32 up to 256) and
+// `depth` (4 rows a group of loads) fix the launch where a caller asks (0:
+// the launcher's own, 64 threads and a depth of 8 on the 16-byte route at
+// N >= 32, else 4); any other value is refused.  Every launch walks a
+// row's samples in order, so the bits do not depend on them.  Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int stump_scan_batched_launch(const void* x, const void* y,
                                          const void* w, const void* thr,
                                          void* err, long long B, int N, int F,
-                                         int T, int vec, void* stream) {
-  if (B < 0 || N < 0 || F < 0 || T < 0 || (vec && T % 4 != 0))
+                                         int T, int vec, int threads,
+                                         int depth, void* stream) {
+  if (B < 0 || N < 0 || F < 0 || T < 0 || (vec && T % 4 != 0) ||
+      threads < 0 || threads > kThreads || threads % 32 != 0 ||
+      (depth != 0 && depth != 4))
     return (int)cudaErrorInvalidValue;
   const long long rows = B * F;
   if (rows == 0 || T == 0) return 0;
-  const long long blocks = (rows + kBatchThreads - 1) / kBatchThreads;
+  const int bt = threads ? threads : kBatchThreads;
+  const long long blocks = (rows + bt - 1) / bt;
   if (rows > (long long)UINT_MAX - kThreads || blocks > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
   const float* xf = (const float*)x;
@@ -453,9 +461,9 @@ extern "C" int stump_scan_batched_launch(const void* x, const void* y,
   const float* tf = (const float*)thr;
   float* ef = (float*)err;
   auto kernel = !vec ? stump_scan_batched_kernel<false, 4>
-                : N >= 32 ? stump_scan_batched_kernel<true, 8>
-                          : stump_scan_batched_kernel<true, 4>;
-  kernel<<<(unsigned)blocks, kBatchThreads, 0, (cudaStream_t)stream>>>(
+                : N >= 32 && !depth ? stump_scan_batched_kernel<true, 8>
+                                    : stump_scan_batched_kernel<true, 4>;
+  kernel<<<(unsigned)blocks, bt, 0, (cudaStream_t)stream>>>(
       xf, yf, wf, tf, ef, (unsigned)rows, N, F, T);
   return (int)cudaGetLastError();
 }

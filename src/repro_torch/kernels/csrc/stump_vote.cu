@@ -292,24 +292,41 @@ cudaError_t start(const Args& a, long long B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The launch: tile_c (1, 2 or 4 columns a lane a row), deep (1: a whole
+// chunk of loads in flight, 0: half a chunk at two blocks an SM) and
+// groups (stages a round, 1 or 2; 2 only on the deep, narrow routes) as a
+// caller asks, or the launcher's own choice where tile_c or groups is 0
+// or deep -1; anything else is refused.  The bits do not depend on them.
 template <bool kFp>
-int launch(const Args& a, long long B, void* stream) {
-  if (B < 0 || a.T < 0 || a.N < 0) return (int)cudaErrorInvalidValue;
+int launch(const Args& a, long long B, int tile_c, int deep_knob, int groups,
+           void* stream) {
+  if (B < 0 || a.T < 0 || a.N < 0 ||
+      (tile_c != 0 && tile_c != 1 && tile_c != 2 && tile_c != 4) ||
+      deep_knob < -1 || deep_knob > 1 || groups < 0 || groups > 2)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || a.N == 0) return 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  if (tile_c == 0 || deep_knob < 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
   auto tiles = [&](int C) { return (a.N + 32LL * C - 1) / (32LL * C); };
   // 128-column tiles, or the narrowest tile that keeps the grid within one
   // block an SM; two stages a round where the tiles are narrow, the grid
   // is within one block an SM and T has two stages or more
-  int C = 4;
-  while (C > 1 && B * tiles(C / 2) <= sms) C /= 2;
+  int C = tile_c;
+  if (C == 0) {
+    C = 4;
+    while (C > 1 && B * tiles(C / 2) <= sms) C /= 2;
+  }
   if (B * tiles(C) > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  const bool deep = B * tiles(C) <= sms;
-  const bool two = C < 4 && deep && a.T > kStageRows;
+  const bool deep = deep_knob < 0 ? B * tiles(C) <= sms : deep_knob == 1;
+  const bool two = groups == 0 ? C < 4 && deep && a.T > kStageRows
+                               : groups == 2;
+  if (two && (C == 4 || !deep)) return (int)cudaErrorInvalidValue;
   const bool vec = C == 4 && a.N % 4 == 0 && ((uintptr_t)a.xsel & 15) == 0;
   auto go = C == 1 ? (two ? start<kFp, 1, false, true, 2>
                           : deep ? start<kFp, 1, false, true, 1>
@@ -327,24 +344,25 @@ int launch(const Args& a, long long B, void* stream) {
 }  // namespace
 
 // xsel (B,T,N), thr/pol/alphas (B,T) -> out (B,N), all f32 and contiguous,
-// on the current device.  Returns the CUDA error of the launch (0 on
-// success).
+// on the current device; tile_c, deep and groups as launch() takes them.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int stump_vote_launch(const void* xsel, const void* thr,
                                  const void* pol, const void* alphas,
-                                 void* out, int B, int T, int N,
-                                 void* stream) {
+                                 void* out, int B, int T, int N, int tile_c,
+                                 int deep, int groups, void* stream) {
   const Args a{(const float*)xsel, (const float*)thr, (const float*)pol,
                (const float*)alphas, (float*)out, nullptr, nullptr, T, N};
-  return launch<false>(a, B, stream);
+  return launch<false>(a, B, tile_c, deep, groups, stream);
 }
 
 // As stump_vote_launch, plus the lanes fp0/fp1 (B,N), 32 bits each.
 extern "C" int stump_vote_fp_launch(const void* xsel, const void* thr,
                                     const void* pol, const void* alphas,
                                     void* out, void* fp0, void* fp1, int B,
-                                    int T, int N, void* stream) {
+                                    int T, int N, int tile_c, int deep,
+                                    int groups, void* stream) {
   const Args a{(const float*)xsel, (const float*)thr, (const float*)pol,
                (const float*)alphas, (float*)out, (uint32_t*)fp0,
                (uint32_t*)fp1, T, N};
-  return launch<true>(a, B, stream);
+  return launch<true>(a, B, tile_c, deep, groups, stream);
 }

@@ -36,16 +36,41 @@ which has no meaning here, and are refused like an unknown name.
 Shapes are bucketed as the JAX package buckets them: each dimension
 rounded up to the block boundary its padded Pallas call would use under
 the reference layout (``DEFAULT_LAYOUTS``), so a table written by either
-package names the same buckets.  Neither backend here has a block layout:
-the CUDA kernels pick their split from the shape and the card's SM count
-(``ops.scan_split``, ``ops.dist_split``), so both behave like the JAX
-package's ``xla`` backend.  :meth:`KernelPolicy.calibrate_call` measures
-each available backend once, with the empty layout;
-:func:`_with_layout` records in ``layout_choices`` the layout the JAX
-package would launch with and strips the layout kwargs before the backend
-runs; a loaded table's layouts are kept and saved back, and never reach a
-kernel.  ``save``/``load`` persist the table to JSON (schema v2; v1
-backend-only tables load with empty layouts; default
+package names the same buckets.
+
+Calibration is a layout autotune, as in the JAX package, over the port's
+own launch knobs.  The CUDA kernels pick their launch from the shape and
+the card's SM count (``ops.scan_split``, ``ops.dist_split``, the
+launchers in ``csrc/``); ``LAYOUT_GRIDS`` lists, for each kernel, the
+launches a caller may ask for instead, as knobs (``CUDA_LAYOUT_KWARGS``:
+the scan's block width ``cols`` and ``blocks`` a column group, the
+batched scan's ``threads`` and row ``depth``, the votes' ``deep`` loads,
+the stump votes' ``tile_c`` and ``groups``, ``dist_update``'s ``cluster``
+route and ``threads``, flash's ``stages``).  Each grid
+starts with ``{}``, the launcher's own choice; a knob a layout leaves out
+keeps the launcher's choice given the others.  Knob names never meet the
+JAX package's block-shape kwargs (``LAYOUT_KWARGS``), so a Pallas layout
+read from one of its tables is never taken for a CUDA one.
+:meth:`KernelPolicy.calibrate_call` times the ``cuda`` backend over the
+kernel's grid (or ``layouts=``, a part of it), skipping a member that
+cannot run the call's bucket (``layout_applies``), and ``torch`` once with
+``{}``; it records the median winner as ``CalEntry(backend, layout)``,
+where a member displaces ``{}`` only by beating it by more than the spread
+of ``{}``'s own reps (on the host clock, small kernels differ by less than
+the launch's noise).
+:func:`dispatch` splits a call's kwargs three ways: the JAX package's
+layout kwargs, stripped and recorded in ``layout_choices`` as the layout
+it would launch with; the CUDA knobs; the rest.  The CUDA layout of a
+launch is the caller's explicit knobs over the table's layout (where the
+entry's winner is the backend resolved and its layout a member of the
+kernel's grid) over ``{}``, recorded in ``cuda_layout_choices``; the
+``torch`` backend takes no knob, and a call that gives knobs and resolves
+to it raises.  A layout the launcher cannot run is
+refused with its CUDA error and raises; it is never replaced by the
+launcher's own choice.  A JAX-written table's Pallas layouts are kept and
+saved back, and never reach a kernel; an entry that mixes the two kinds
+of key is refused.  ``save``/``load`` persist the table to JSON (schema
+v2; v1 backend-only tables load with empty layouts; default
 ``artifacts/torch_backend_calibration.json``).
 
 Under :func:`repro_torch.obs.profiling_enabled`, :func:`dispatch` also
@@ -91,6 +116,11 @@ LayoutKey = Tuple[Tuple[str, int], ...]  # canonical (sorted items) form
 # default) so that its callers' code runs here; they reach no kernel.
 LAYOUT_KWARGS = ("block_t", "block_n", "block_q", "block_k")
 
+# The port's launch knobs (see ops for what each one sets): names of their
+# own, so that a layout is either the JAX package's or the port's.
+CUDA_LAYOUT_KWARGS = ("cols", "blocks", "threads", "depth", "deep", "tile_c",
+                      "groups", "cluster", "stages")
+
 # The JAX package's reference layouts: buckets are computed against them.
 DEFAULT_LAYOUTS: Dict[str, Layout] = {
     "stump_scan": {"block_n": 256},
@@ -103,6 +133,30 @@ DEFAULT_LAYOUTS: Dict[str, Layout] = {
     "dist_update": {"block_n": 1024},
 }
 
+# The cuda backend's sweep grid per kernel: first the launcher's own
+# choice, then at most six launches a caller may ask for, none of them
+# naming a shape.  A member equal to the launcher's choice at some shape
+# (a small problem, or a knob that is one dtype's own) just measures the
+# same launch twice there.
+_VOTE_GRID = [{}, {"deep": 0}, {"deep": 1}]
+_STUMP_VOTE_GRID = [{}, {"tile_c": 1}, {"tile_c": 2}, {"tile_c": 4},
+                    {"deep": 0}, {"deep": 1},
+                    {"tile_c": 2, "deep": 1, "groups": 2}]
+LAYOUT_GRIDS: Dict[str, List[Layout]] = {
+    "stump_scan": [{}, {"cols": 1}, {"cols": 4}, {"cols": 16}, {"cols": 64},
+                   {"cols": 8, "blocks": 16}, {"cols": 8, "blocks": 66}],
+    "stump_scan_batched": [{}, {"threads": 32}, {"threads": 128},
+                           {"threads": 256}, {"depth": 4},
+                           {"threads": 256, "depth": 4}],
+    "ensemble_vote": _VOTE_GRID,
+    "ensemble_vote_batched": _VOTE_GRID,
+    "stump_vote_batched": _STUMP_VOTE_GRID,
+    "stump_vote_fp_batched": _STUMP_VOTE_GRID,
+    "flash_attention": [{}, {"stages": 2}],
+    "dist_update": [{}, {"cluster": 0}, {"cluster": 1}, {"threads": 256},
+                    {"threads": 1024}, {"cluster": 0, "threads": 256}],
+}
+
 
 def layout_key(layout) -> LayoutKey:
     """Canonical hashable form of a layout (dict or item tuple -> sorted
@@ -111,6 +165,48 @@ def layout_key(layout) -> LayoutKey:
         return ()
     items = layout.items() if isinstance(layout, dict) else layout
     return tuple(sorted((str(k), int(v)) for k, v in items))
+
+
+def layout_label(layout) -> str:
+    """Render a layout for logs ("cols=8,blocks=16"; "-" for ``{}``)."""
+    items = layout if isinstance(layout, tuple) else layout_key(layout)
+    return ",".join(f"{k}={v}" for k, v in items) or "-"
+
+
+_LAYOUT_SET = frozenset(LAYOUT_KWARGS)
+_CUDA_SET = frozenset(CUDA_LAYOUT_KWARGS)
+
+
+def is_cuda_layout(layout) -> bool:
+    """True for a non-empty layout of the port's knobs only; a layout that
+    mixes them with other keys raises ValueError."""
+    keys = {k for k, _ in layout_key(layout)}
+    cuda = keys & _CUDA_SET
+    if cuda and keys - _CUDA_SET:
+        raise ValueError(f"layout {layout_label(layout)} mixes CUDA launch "
+                         f"knobs {sorted(cuda)} with other keys "
+                         f"{sorted(keys - _CUDA_SET)}")
+    return bool(cuda)
+
+
+def in_grid(kernel: str, layout) -> bool:
+    """True where ``layout`` is a member of the kernel's cuda grid."""
+    key = layout_key(layout)
+    return any(layout_key(m) == key for m in LAYOUT_GRIDS.get(kernel, ()))
+
+
+# kernel -> (bucket, layout) -> whether that grid member can run every
+# shape of the bucket; filled by repro_torch.kernels.ops (a kernel absent
+# here runs every member at every bucket)
+CUDA_LAYOUT_APPLIES: Dict[str, Callable[[Bucket, Layout], bool]] = {}
+
+
+def layout_applies(kernel: str, bucket: Bucket, layout) -> bool:
+    """Whether the cuda launch ``layout`` can run every raw shape of
+    ``bucket`` (decided on the bucket, so a winner recorded for it holds
+    for each of them)."""
+    check = CUDA_LAYOUT_APPLIES.get(kernel)
+    return check is None or bool(check(tuple(bucket), dict(layout)))
 
 
 class CalEntry(NamedTuple):
@@ -122,15 +218,17 @@ class CalEntry(NamedTuple):
 def _entry(value) -> CalEntry:
     """Normalize a calibration-table value to :class:`CalEntry`: a bare
     backend name (the v1 form), a CalEntry, a ``(backend, layout)`` pair or
-    a ``{"backend": ..., "layout": ...}`` dict."""
-    if isinstance(value, CalEntry):
-        return CalEntry(canonical(value.backend), layout_key(value.layout))
+    a ``{"backend": ..., "layout": ...}`` dict.  A layout that mixes the
+    JAX package's keys with CUDA knobs raises ValueError."""
     if isinstance(value, str):
         return CalEntry(canonical(value))
-    if isinstance(value, dict):
-        return CalEntry(canonical(value["backend"]),
-                        layout_key(value.get("layout")))
-    backend, layout = value
+    if isinstance(value, CalEntry):
+        backend, layout = value
+    elif isinstance(value, dict):
+        backend, layout = value["backend"], value.get("layout")
+    else:
+        backend, layout = value
+    is_cuda_layout(layout)                 # a mixed layout raises
     return CalEntry(canonical(backend), layout_key(layout))
 
 
@@ -400,11 +498,14 @@ class KernelPolicy:
     ``stump_vote_fp_batched`` path (``serve/engine.py``); the dispatcher
     itself ignores it.
 
-    ``choices`` records the backend dispatched per (kernel, bucket) and
-    ``layout_choices`` the JAX package's layout for it; the dispatch cache
-    is keyed on every resolution input (the live env value and the call's
-    device type included), so a repeated same-bucket call skips
-    re-resolution without ever pinning a stale choice.
+    ``choices`` records the backend dispatched per (kernel, bucket),
+    ``layout_choices`` the JAX package's layout for it and
+    ``cuda_layout_choices`` the launch knobs it ran with (``{}``: the
+    launcher's own choice; always ``{}`` on ``torch``).  The dispatch
+    cache holds each plan's backend and both layouts and is keyed on every
+    resolution input (the live env value and the call's device type
+    included; :meth:`record` clears it), so a repeated same-bucket call
+    skips re-resolution without ever pinning a stale choice.
     """
 
     def __init__(self, backend: Optional[str] = None,
@@ -419,6 +520,7 @@ class KernelPolicy:
         self.fused_fingerprint = bool(fused_fingerprint)
         self.choices: Dict[Tuple[str, Bucket], str] = {}
         self.layout_choices: Dict[Tuple[str, Bucket], Layout] = {}
+        self.cuda_layout_choices: Dict[Tuple[str, Bucket], Layout] = {}
         self.cache_hits = 0
         self._cache: Dict[tuple, object] = {}
         self._warned: set = set()
@@ -463,13 +565,13 @@ class KernelPolicy:
         return self._plan(kernel, tuple(bucket), explicit, device)[0]
 
     def _plan(self, kernel: str, bucket: Bucket, explicit: Optional[str],
-              device) -> Tuple[object, Layout]:
-        """``(backend, the JAX package's layout)`` for one call on
-        ``device`` (a device type or a ``torch.device``), via the dispatch
-        cache, recording the choice.  The key holds every resolution input
-        — the live env value and the call's device too — so neither an env
-        change nor a call on another device is masked by a cached
-        choice."""
+              device) -> Tuple[object, Layout, Layout]:
+        """``(backend, the JAX package's layout, the table's CUDA layout)``
+        for one call on ``device`` (a device type or a ``torch.device``),
+        via the dispatch cache, recording the choice.  The key holds every
+        resolution input — the live env value and the call's device too —
+        so neither an env change nor a call on another device is masked by
+        a cached choice."""
         key = (kernel, bucket, explicit, self.backend, self._env_backend(),
                device)
         hit = self._cache.get(key)
@@ -481,7 +583,8 @@ class KernelPolicy:
                                             device=device)]
             layout = dict(DEFAULT_LAYOUTS.get(kernel, {}))
             layout.update(self.layout_for(kernel, bucket, be.name))
-            hit = self._cache[key] = (be, layout)
+            hit = self._cache[key] = (
+                be, layout, self.cuda_layout_for(kernel, bucket, be.name))
         else:
             self.cache_hits += 1
         self.choices[(kernel, bucket)] = hit[0].name
@@ -490,12 +593,34 @@ class KernelPolicy:
     # ------------------------------------------------------------- layout
     def layout_for(self, kernel: str, bucket: Bucket, backend: str
                    ) -> Layout:
-        """The table's layout for one (kernel, bucket), where its winner is
-        the backend resolved (recorded, never launched: see the module
-        docstring)."""
+        """The table's JAX-package layout for one (kernel, bucket), where
+        its winner is the backend resolved (recorded, never launched: see
+        the module docstring)."""
         entry = self.table.get((kernel, tuple(bucket)))
-        if entry is not None and entry.backend == backend and entry.layout:
+        if (entry is not None and entry.backend == backend and entry.layout
+                and not is_cuda_layout(entry.layout)):
             return dict(entry.layout)
+        return {}
+
+    def cuda_layout_for(self, kernel: str, bucket: Bucket, backend: str
+                        ) -> Layout:
+        """The table's CUDA launch layout for one (kernel, bucket): its
+        layout where the winner is the backend resolved (not ``torch``)
+        and the layout a member of the kernel's grid, else ``{}``.  A CUDA
+        layout outside the grid warns once and is not launched."""
+        entry = self.table.get((kernel, tuple(bucket)))
+        if (backend == "torch" or entry is None or entry.backend != backend
+                or not is_cuda_layout(entry.layout)):
+            return {}
+        if in_grid(kernel, entry.layout):
+            return dict(entry.layout)
+        if (kernel, entry.layout) not in self._warned:
+            self._warned.add((kernel, entry.layout))
+            warnings.warn(
+                f"calibration table: {kernel} layout "
+                f"{layout_label(entry.layout)} is not in LAYOUT_GRIDS; "
+                f"launching the launcher's own choice (calibrate again)",
+                RuntimeWarning, stacklevel=4)
         return {}
 
     # -------------------------------------------------------- calibration
@@ -506,18 +631,42 @@ class KernelPolicy:
         self._cache.clear()
 
     def calibrate_call(self, kernel: str, *args, reps: int = 5,
-                       backends: Optional[Sequence[str]] = None, **kwargs
+                       backends: Optional[Sequence[str]] = None,
+                       layouts: Optional[Sequence[Layout]] = None, **kwargs
                        ) -> Tuple[Bucket, Dict[Tuple[str, LayoutKey],
                                                List[float]]]:
-        """Time every backend available for the call's device (one warm-up
-        launch, which builds the kernels at first use, then ``reps`` timed
-        launches, the card synchronized around each), record the median
-        winner for the call's bucket, and return ``(bucket, {(backend, ()):
-        [seconds]})``.  No backend has a block layout, so each is measured
-        once, with the empty layout."""
+        """Time every backend available for the call's device over its
+        layouts, record the ``(backend, layout)`` median winner for the
+        call's bucket, and return ``(bucket, {(backend, layout_key):
+        [seconds]})``.  Backend by backend, each layout takes one warm-up
+        launch (which builds the kernels at first use); then each of
+        ``reps`` rounds times one launch of every layout of the backend in
+        turn, the card synchronized around each, so that a drift of either
+        clock weighs on every layout alike (and no layout's launch follows
+        the plain version's, whose host work slows the next launch).
+        Within a backend a member wins over ``{}`` only where its median
+        beats ``{}``'s by more than the spread (max - min) of ``{}``'s own
+        reps: these are host times, and at a few microseconds of kernel the
+        launch's noise would otherwise pick members the card runs no
+        faster.
+
+        ``torch`` has no launch layout and is measured once with ``{}``;
+        another backend sweeps ``layouts`` (default: the kernel's
+        ``LAYOUT_GRIDS`` entry; each must be a member of it), skipping, with
+        a printed line, a member that cannot run the call's bucket
+        (:func:`layout_applies`)."""
         bucket = bucket_of(kernel, args, kwargs)
         base = {k: v for k, v in kwargs.items()
-                if k not in LAYOUT_KWARGS and v is not None}
+                if k not in _LAYOUT_SET and k not in _CUDA_SET
+                and v is not None}
+        grid = LAYOUT_GRIDS.get(kernel, [{}])
+        if layouts is not None:
+            grid = [dict(lay) for lay in layouts]
+            for lay in grid:
+                if not in_grid(kernel, lay):
+                    raise ValueError(
+                        f"{kernel} layout {layout_label(lay)} is not in "
+                        f"LAYOUT_GRIDS[{kernel!r}]")
         device = _device_type(call_device(kernel, args, kwargs))
         sync = _sync_for(args)
         names = backends if backends is not None else sorted(BACKENDS)
@@ -526,23 +675,41 @@ class KernelPolicy:
             be = BACKENDS[canonical(name)]
             if not be.available(device):
                 continue
-            be.run(kernel, *args, **base)
-            sync()
-            ts = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                be.run(kernel, *args, **base)
+            runs = []                               # (layout key, kwargs)
+            for layout in ([{}] if be.name == "torch" else grid):
+                if not layout_applies(kernel, bucket, layout):
+                    print(f"calibrate {kernel} bucket "
+                          f"{bucket_label(bucket)}: {be.name} layout "
+                          f"{layout_label(layout)} skipped (it cannot run "
+                          f"this bucket)", flush=True)
+                    continue
+                call_kwargs = dict(base, **layout)
+                be.run(kernel, *args, **call_kwargs)
                 sync()
-                ts.append(time.perf_counter() - t0)
-            samples[(be.name, ())] = ts
+                runs.append((layout_key(layout), call_kwargs))
+                samples[(be.name, layout_key(layout))] = []
+            for _ in range(reps):
+                for key, call_kwargs in runs:
+                    t0 = time.perf_counter()
+                    be.run(kernel, *args, **call_kwargs)
+                    sync()
+                    samples[(be.name, key)].append(time.perf_counter() - t0)
         if not samples:
             raise ValueError(
                 f"no backend to calibrate {kernel!r}: none of {list(names)} "
                 f"is available for '{device}' tensors (available: "
                 f"{available_backends(device)})")
-        wname, wlayout = min(
-            samples, key=lambda k: statistics.median(samples[k]))
-        self.record(kernel, bucket, wname, dict(wlayout))
+        med = {k: statistics.median(ts) for k, ts in samples.items()}
+        best: Dict[str, LayoutKey] = {}
+        for name, key in sorted(med, key=med.get):
+            best.setdefault(name, key)
+        for name, key in best.items():
+            own = samples.get((name, ()))
+            if key and own and med[(name, ())] - med[(name, key)] <= (
+                    max(own) - min(own)):
+                best[name] = ()
+        wname = min(best, key=lambda n: med[(n, best[n])])
+        self.record(kernel, bucket, wname, dict(best[wname]))
         return bucket, samples
 
     # -------------------------------------------------------- persistence
@@ -571,14 +738,19 @@ class KernelPolicy:
         """Load a persisted table, the JAX package's included (its backend
         names through the aliases, its env variable read as the port's).
         Schema v1 (backend-only entries, no ``version``) loads with empty
-        layouts; a newer schema is refused.  A table measured on another
-        platform warns once per process: its winners may not transfer."""
+        layouts; a newer schema is refused, and so is an entry whose layout
+        mixes the JAX package's keys with CUDA knobs (ValueError).  A table
+        measured on another platform warns once per process: its winners
+        may not transfer."""
         data = json.loads(Path(path).read_text())
         version = int(data.get("version", 1))
         if version > CALIBRATION_SCHEMA_VERSION:
             raise ValueError(
                 f"calibration table {path!r} has schema v{version}; this "
                 f"build reads up to v{CALIBRATION_SCHEMA_VERSION}")
+        entries = {(e["kernel"], tuple(e["bucket"])):
+                   _entry((e["backend"], e.get("layout")))
+                   for e in data.get("table", [])}
         measured_on = data.get("measured_on")
         here = platform()
         if (measured_on and measured_on != here and data.get("table")
@@ -591,11 +763,7 @@ class KernelPolicy:
                 f"(KernelPolicy.calibrate_call) to re-measure",
                 RuntimeWarning, stacklevel=2)
         env_var = data.get("env_var", ENV_VAR)
-        pol = cls(backend=data.get("backend"),
-                  table={(e["kernel"], tuple(e["bucket"])):
-                         CalEntry(canonical(e["backend"]),
-                                  layout_key(e.get("layout")))
-                         for e in data.get("table", [])},
+        pol = cls(backend=data.get("backend"), table=entries,
                   env_var=ENV_VAR if env_var == REFERENCE_ENV_VAR
                   else env_var)
         pol.measured_on = measured_on
@@ -630,37 +798,51 @@ def _sync_for(args: Sequence) -> Callable[[], None]:
     return lambda: None
 
 
-_LAYOUT_SET = frozenset(LAYOUT_KWARGS)
-
-
-def _with_layout(kwargs: Optional[dict], layout: Layout
-                 ) -> Tuple[dict, Layout]:
-    """Split one call's kwargs: the rest, without any layout kwarg (no
-    backend here takes one), and the layout the JAX package would launch
-    it with — explicit caller kwargs over ``layout`` (the table's layout
-    over ``DEFAULT_LAYOUTS``).  ``None`` layout kwargs (the ops wrappers'
-    default) count as absent."""
+def _with_layout(kwargs: Optional[dict], layout: Layout, cuda: Layout
+                 ) -> Tuple[dict, Layout, Layout]:
+    """Split one call's kwargs three ways: the rest; the layout the JAX
+    package would launch it with, explicit caller kwargs over ``layout``
+    (the table's layout over ``DEFAULT_LAYOUTS``), stripped (no backend
+    here takes one); and the CUDA launch knobs, explicit caller knobs over
+    ``cuda`` (the table's CUDA layout, or ``{}``).  ``None`` values (the
+    ops wrappers' default) count as absent."""
     rest: dict = {}
-    explicit = None
+    explicit = knobs = None
     for k, v in (kwargs or {}).items():
-        if k not in _LAYOUT_SET:
+        if k in _LAYOUT_SET:
+            if v is not None:
+                explicit = dict(layout) if explicit is None else explicit
+                explicit[k] = int(v)
+        elif k in _CUDA_SET:
+            if v is not None:
+                knobs = dict(cuda) if knobs is None else knobs
+                knobs[k] = int(v)
+        else:
             rest[k] = v
-        elif v is not None:
-            explicit = dict(layout) if explicit is None else explicit
-            explicit[k] = int(v)
-    return rest, (layout if explicit is None else explicit)
+    return (rest, layout if explicit is None else explicit,
+            cuda if knobs is None else knobs)
 
 
 def dispatch(kernel: str, args: Sequence, kwargs: Optional[dict] = None, *,
              policy: Optional[KernelPolicy] = None,
              backend: Optional[str] = None):
-    """Resolve a backend for this call and run it."""
+    """Resolve a backend and its launch layout for this call and run it."""
     pol = policy if policy is not None else _DEFAULT_POLICY
     bucket = _BUCKETERS[kernel](*args)
-    be, layout = pol._plan(kernel, bucket, backend,
-                           call_device(kernel, args, kwargs))
-    kwargs, layout = _with_layout(kwargs, layout)
+    be, layout, cuda = pol._plan(kernel, bucket, backend,
+                                 call_device(kernel, args, kwargs))
+    if be.name == "torch":
+        knobs = sorted(k for k, v in (kwargs or {}).items()
+                       if k in _CUDA_SET and v is not None)
+        if knobs:
+            raise ValueError(
+                f"{kernel}: launch knobs {knobs} given to a call that "
+                f"resolves to the torch backend, which takes none")
+    kwargs, layout, cuda = _with_layout(kwargs, layout, cuda)
     pol.layout_choices[(kernel, bucket)] = layout
+    if cuda:
+        kwargs = {**kwargs, **cuda}
+    pol.cuda_layout_choices[(kernel, bucket)] = cuda
     if not obs.profiling_enabled():
         return be.run(kernel, *args, **kwargs)
     # profiling path: timing a launch means waiting for the card, so this

@@ -10,9 +10,14 @@ version; ``backend=`` (``"torch"`` | ``"cuda"``), ``policy=`` (a
 :class:`KernelPolicy`) and the ``REPRO_TORCH_KERNEL_BACKEND`` variable pin
 one (see the dispatcher's docstring for the order).  The block-shape
 kwargs (``block_t``/``block_n``/``block_q``/``block_k``) are the JAX
-package's; they default to None and reach no kernel here.  There is no
-fall-back from the card to the plain version: a kernel that fails to
-build or launch raises.
+package's; they default to None and reach no kernel here.  Each wrapper
+also takes its kernel's launch knobs (``**knobs``, names in
+``dispatch.CUDA_LAYOUT_KWARGS``; a calibration table may supply them, see
+``dispatch.LAYOUT_GRIDS``): they set the ``cuda`` launch in place of the
+launcher's own choice and never change what is computed; the ``torch``
+backend takes none.  There is no fall-back from the card to the plain
+version: a kernel that fails to build or launch raises, and so does a
+launch the launcher refuses.
 
 This module holds the ``cuda`` backend's launch code (the ``_*_cuda``
 functions, which take CUDA tensors only).  ``LAUNCHES`` counts, per
@@ -65,6 +70,17 @@ def _f32(name: str, t: torch.Tensor) -> torch.Tensor:
     if t.dtype != F32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     return t.contiguous()
+
+
+def _knob(name: str, value, own: int) -> int:
+    """A launch knob as its launcher takes it: ``own`` (the launcher's own
+    choice) where the caller gave none.  A value equal to ``own`` names no
+    launch and raises."""
+    if value is None:
+        return own
+    if int(value) == own:
+        raise ValueError(f"launch knob {name}={value!r} names no launch")
+    return int(value)
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -142,6 +158,28 @@ def scan_split(N: int, F: int, T: int, sms: int) -> ref.ScanSplit:
     return scan_candidate(N, F, T, sms, 8)
 
 
+def scan_layout_split(N: int, F: int, T: int, sms: int,
+                      cols: Optional[int] = None,
+                      blocks: Optional[int] = None) -> ref.ScanSplit:
+    """The split of a launch that asks for ``cols`` features a block and/or
+    ``blocks`` blocks a column group (the launch knobs of
+    :func:`stump_scan`): neither, :func:`scan_split`; ``cols`` alone,
+    :func:`scan_candidate`'s split at that width; ``blocks`` (at ``cols``,
+    else 8), 256 // cols chunks a block over that many blocks, rows enough
+    to cover N.  A split the launcher cannot run is refused there."""
+    if cols is None and blocks is None:
+        return scan_split(N, F, T, sms)
+    cols = 8 if cols is None else int(cols)
+    if cols < 1:
+        raise ValueError(f"stump_scan cols={cols}: need a power of two "
+                         f"up to {SCAN_THREADS}")
+    if blocks is None:
+        return scan_candidate(N, F, T, sms, cols)
+    chunks = SCAN_THREADS // cols * int(blocks)
+    return ref.ScanSplit(max(1, -(-N // chunks)) if chunks > 0 else 1,
+                         chunks, int(blocks), cols)
+
+
 def scan_workspace(F: int, T: int, split: ref.ScanSplit) -> int:
     """Doubles of scratch a split takes: the block sums of its second pass
     (none where a column group is one block)."""
@@ -183,18 +221,23 @@ def _stump_scan_launch(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 def stump_scan(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                thresholds: torch.Tensor, *, block_n: Optional[int] = None,
                backend: Optional[str] = None,
-               policy: Optional[KernelPolicy] = None) -> torch.Tensor:
+               policy: Optional[KernelPolicy] = None, **knobs
+               ) -> torch.Tensor:
     """Weighted stump errors over the (F, T) grid: x (N,F), y/w (N,),
     thresholds (F,T) -> (F,T) f32 (see :func:`ref.stump_scan_ref`).  On
     the card the rows are split as :func:`scan_split` picks for the card's
-    SM count; the sum's order is :func:`ref.scan_in_kernel_order`'s."""
+    SM count, or as the knobs ``cols``/``blocks`` ask
+    (:func:`scan_layout_split`); the sum's order is
+    :func:`ref.scan_in_kernel_order`'s, in f64, so every split gives the
+    plain version's bits."""
     return dispatch.dispatch("stump_scan", (x, y, w, thresholds),
-                             {"block_n": block_n}, policy=policy,
+                             {"block_n": block_n, **knobs}, policy=policy,
                              backend=backend)
 
 
 def _stump_scan_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                     thresholds: torch.Tensor) -> torch.Tensor:
+                     thresholds: torch.Tensor, *, cols: Optional[int] = None,
+                     blocks: Optional[int] = None) -> torch.Tensor:
     _card(x, y, w, thresholds)
     N, F = x.shape
     T = thresholds.shape[1]
@@ -206,29 +249,32 @@ def _stump_scan_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     thr = _f32("thresholds", thresholds)
     if F * T == 0:
         return torch.empty_like(thr)
-    return _stump_scan_launch(x, y, w, thr,
-                              scan_split(N, F, T, _sms(x.get_device())))
+    return _stump_scan_launch(x, y, w, thr, scan_layout_split(
+        N, F, T, _sms(x.get_device()), cols, blocks))
 
 
 def stump_scan_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                        thresholds: torch.Tensor, *,
                        block_n: Optional[int] = None,
                        backend: Optional[str] = None,
-                       policy: Optional[KernelPolicy] = None
+                       policy: Optional[KernelPolicy] = None, **knobs
                        ) -> torch.Tensor:
     """Per-slot weighted stump errors for a stacked fleet batch: x (B,N,F),
     y/w (B,N), thresholds (B,F,T) -> (B,F,T) f32 (see
     :func:`ref.stump_scan_batched_ref`, whose bits the kernel gives).  Any
     B is launched as it is: the kernel's grid is flat, so no slot padding
-    is needed."""
+    is needed.  Knobs: ``threads`` a block (a multiple of 32 up to 256)
+    and ``depth``, the rows of a group of loads (4 in place of the
+    16-byte route's own 8)."""
     return dispatch.dispatch("stump_scan_batched", (x, y, w, thresholds),
-                             {"block_n": block_n}, policy=policy,
+                             {"block_n": block_n, **knobs}, policy=policy,
                              backend=backend)
 
 
 def _stump_scan_batched_cuda(x: torch.Tensor, y: torch.Tensor,
-                             w: torch.Tensor, thresholds: torch.Tensor
-                             ) -> torch.Tensor:
+                             w: torch.Tensor, thresholds: torch.Tensor, *,
+                             threads: Optional[int] = None,
+                             depth: Optional[int] = None) -> torch.Tensor:
     _card(x, y, w, thresholds)
     B, N, F = x.shape
     T = thresholds.shape[2]
@@ -247,6 +293,7 @@ def _stump_scan_batched_cuda(x: torch.Tensor, y: torch.Tensor,
         _launch("stump_scan_batched", load().stump_scan_batched_launch,
                 x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
                 err.data_ptr(), B, N, F, T, int(scan_vec(T, thr, err)),
+                _knob("threads", threads, 0), _knob("depth", depth, 0),
                 _stream(x))
     return err
 
@@ -274,7 +321,7 @@ def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
                        block_t: Optional[int] = None,
                        block_n: Optional[int] = None,
                        backend: Optional[str] = None,
-                       policy: Optional[KernelPolicy] = None
+                       policy: Optional[KernelPolicy] = None, **knobs
                        ) -> torch.Tensor:
     """Fused stump margin + weighted vote for packed serving batches:
     xsel (B,T,N), thr/pol/alphas (B,T) -> (B,N) f32.  Zero-alpha padding
@@ -283,15 +330,26 @@ def stump_vote_batched(xsel: torch.Tensor, thr: torch.Tensor,
     On the card the sum has the generic votes' fixed order
     (``csrc/stump_vote.cu``; :func:`ref.stump_vote_in_kernel_order`
     emulates it): a column's result has the same bits whatever else
-    shares the batch, and :func:`stump_vote_fp_batched` gives the same."""
+    shares the batch and whatever the launch, and
+    :func:`stump_vote_fp_batched` gives the same.  Knobs: ``tile_c``
+    columns a lane (1, 2 or 4), ``deep`` (1: a whole chunk of loads in
+    flight, 0: half a chunk) and ``groups``, stages a round (2 only with
+    ``tile_c`` < 4 and deep loads)."""
     return dispatch.dispatch("stump_vote_batched", (xsel, thr, pol, alphas),
-                             {"block_t": block_t, "block_n": block_n},
-                             policy=policy, backend=backend)
+                             {"block_t": block_t, "block_n": block_n,
+                              **knobs}, policy=policy, backend=backend)
+
+
+def _vote_knobs(tile_c, deep, groups):
+    return (_knob("tile_c", tile_c, 0), _knob("deep", deep, -1),
+            _knob("groups", groups, 0))
 
 
 def _stump_vote_batched_cuda(xsel: torch.Tensor, thr: torch.Tensor,
-                             pol: torch.Tensor, alphas: torch.Tensor
-                             ) -> torch.Tensor:
+                             pol: torch.Tensor, alphas: torch.Tensor, *,
+                             tile_c: Optional[int] = None,
+                             deep: Optional[int] = None,
+                             groups: Optional[int] = None) -> torch.Tensor:
     _card(xsel, thr, pol, alphas)
     B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
     out = torch.empty((B, N), dtype=F32, device=xsel.device)
@@ -301,7 +359,8 @@ def _stump_vote_batched_cuda(xsel: torch.Tensor, thr: torch.Tensor,
     with _on_device(xsel):
         _launch("stump_vote_batched", load().stump_vote_launch,
                 xsel.data_ptr(), thr.data_ptr(), pol.data_ptr(),
-                alphas.data_ptr(), out.data_ptr(), B, T, N, _stream(xsel))
+                alphas.data_ptr(), out.data_ptr(), B, T, N,
+                *_vote_knobs(tile_c, deep, groups), _stream(xsel))
     return out
 
 
@@ -310,19 +369,23 @@ def stump_vote_fp_batched(xsel: torch.Tensor, thr: torch.Tensor,
                           block_t: Optional[int] = None,
                           block_n: Optional[int] = None,
                           backend: Optional[str] = None,
-                          policy: Optional[KernelPolicy] = None):
+                          policy: Optional[KernelPolicy] = None, **knobs):
     """One-launch serving path: :func:`stump_vote_batched` plus the two
     xor-fold fingerprint lanes per column -> ``(margins (B,N) f32,
     fp0 (B,N), fp1 (B,N))``, the lanes uint32 bits in int32 tensors and
-    identical bit for bit on every device and backend."""
+    identical bit for bit on every device and backend.  Knobs as
+    :func:`stump_vote_batched`'s."""
     return dispatch.dispatch("stump_vote_fp_batched",
                              (xsel, thr, pol, alphas),
-                             {"block_t": block_t, "block_n": block_n},
-                             policy=policy, backend=backend)
+                             {"block_t": block_t, "block_n": block_n,
+                              **knobs}, policy=policy, backend=backend)
 
 
 def _stump_vote_fp_batched_cuda(xsel: torch.Tensor, thr: torch.Tensor,
-                                pol: torch.Tensor, alphas: torch.Tensor):
+                                pol: torch.Tensor, alphas: torch.Tensor, *,
+                                tile_c: Optional[int] = None,
+                                deep: Optional[int] = None,
+                                groups: Optional[int] = None):
     _card(xsel, thr, pol, alphas)
     B, T, N, xsel, thr, pol, alphas = _vote_args(xsel, thr, pol, alphas)
     out, f0, f1 = _fp_outputs(B, N, xsel.device)
@@ -333,7 +396,8 @@ def _stump_vote_fp_batched_cuda(xsel: torch.Tensor, thr: torch.Tensor,
         _launch("stump_vote_fp_batched", load().stump_vote_fp_launch,
                 xsel.data_ptr(), thr.data_ptr(), pol.data_ptr(),
                 alphas.data_ptr(), out.data_ptr(), f0.data_ptr(),
-                f1.data_ptr(), B, T, N, _stream(xsel))
+                f1.data_ptr(), B, T, N, *_vote_knobs(tile_c, deep, groups),
+                _stream(xsel))
     return out, f0, f1
 
 
@@ -341,7 +405,7 @@ def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor, *,
                           block_t: Optional[int] = None,
                           block_n: Optional[int] = None,
                           backend: Optional[str] = None,
-                          policy: Optional[KernelPolicy] = None
+                          policy: Optional[KernelPolicy] = None, **knobs
                           ) -> torch.Tensor:
     """Per-tenant weighted ensemble margins for packed serving batches:
     margins (B,T,N), alphas (B,T) -> (B,N) f32, sum_t alphas * margins
@@ -352,13 +416,16 @@ def ensemble_vote_batched(margins: torch.Tensor, alphas: torch.Tensor, *,
     stages added in order.  So a column's result is a fixed function of
     its own alphas and margins: the same bits run to run and whatever else
     shares the batch (B, N, zero padding in T or N).  Zero-alpha padding
-    rows over zero margins add exactly nothing; no padding is needed."""
+    rows over zero margins add exactly nothing; no padding is needed.
+    Knob: ``deep`` (1: a whole chunk of loads in flight, one block an SM;
+    0: half a chunk at two blocks an SM)."""
     return dispatch.dispatch("ensemble_vote_batched", (margins, alphas),
-                             {"block_t": block_t, "block_n": block_n},
-                             policy=policy, backend=backend)
+                             {"block_t": block_t, "block_n": block_n,
+                              **knobs}, policy=policy, backend=backend)
 
 
-def _ensemble_vote_batched_cuda(margins: torch.Tensor, alphas: torch.Tensor
+def _ensemble_vote_batched_cuda(margins: torch.Tensor, alphas: torch.Tensor,
+                                *, deep: Optional[int] = None
                                 ) -> torch.Tensor:
     _card(margins, alphas)
     B, T, N = margins.shape
@@ -372,7 +439,7 @@ def _ensemble_vote_batched_cuda(margins: torch.Tensor, alphas: torch.Tensor
     with _on_device(m):
         _launch("ensemble_vote_batched", load().ensemble_vote_batched_launch,
                 m.data_ptr(), a.data_ptr(), out.data_ptr(), B, T, N,
-                _stream(m))
+                _knob("deep", deep, -1), _stream(m))
     return out
 
 
@@ -380,18 +447,20 @@ def ensemble_vote(margins: torch.Tensor, alphas: torch.Tensor, *,
                   block_t: Optional[int] = None,
                   block_n: Optional[int] = None,
                   backend: Optional[str] = None,
-                  policy: Optional[KernelPolicy] = None) -> torch.Tensor:
+                  policy: Optional[KernelPolicy] = None, **knobs
+                  ) -> torch.Tensor:
     """Weighted ensemble margin H = sum_t alphas_t margins_t: margins (T,N),
     alphas (T,) -> (N,) f32 (see :func:`ref.ensemble_vote_ref`).  On the
     card: the batched kernel at B = 1, the same fixed order, so a column
-    gives the bits :func:`ensemble_vote_batched` gives it in any batch."""
+    gives the bits :func:`ensemble_vote_batched` gives it in any batch.
+    Knob: ``deep``, as :func:`ensemble_vote_batched`'s."""
     return dispatch.dispatch("ensemble_vote", (margins, alphas),
-                             {"block_t": block_t, "block_n": block_n},
-                             policy=policy, backend=backend)
+                             {"block_t": block_t, "block_n": block_n,
+                              **knobs}, policy=policy, backend=backend)
 
 
-def _ensemble_vote_cuda(margins: torch.Tensor, alphas: torch.Tensor
-                        ) -> torch.Tensor:
+def _ensemble_vote_cuda(margins: torch.Tensor, alphas: torch.Tensor, *,
+                        deep: Optional[int] = None) -> torch.Tensor:
     _card(margins, alphas)
     T, N = margins.shape
     if alphas.shape != (T,):
@@ -403,7 +472,8 @@ def _ensemble_vote_cuda(margins: torch.Tensor, alphas: torch.Tensor
     from repro_torch.kernels.build import load
     with _on_device(m):
         _launch("ensemble_vote", load().ensemble_vote_launch,
-                m.data_ptr(), a.data_ptr(), out.data_ptr(), T, N, _stream(m))
+                m.data_ptr(), a.data_ptr(), out.data_ptr(), T, N,
+                _knob("deep", deep, -1), _stream(m))
     return out
 
 
@@ -418,7 +488,8 @@ DIST_GRID_THREADS = 512
 
 
 @functools.lru_cache(maxsize=1024)
-def dist_split(N: int, sms: int) -> ref.DistSplit:
+def dist_split(N: int, sms: int, cluster: Optional[int] = None,
+               threads: Optional[int] = None) -> ref.DistSplit:
     """How :func:`dist_update` spreads N samples on a card of ``sms`` SMs
     (see ``csrc/dist_update.cu`` and :class:`ref.DistSplit`).  Up to
     ``DIST_CLUSTER * DIST_THREADS`` float4 vectors: one cluster of the
@@ -427,20 +498,36 @@ def dist_split(N: int, sms: int) -> ref.DistSplit:
     cooperative grid of one block an SM (so that every block is
     resident), each a tile of ceil(vectors / sms) vectors on up to
     ``DIST_GRID_THREADS`` threads, kept on chip up to ``DIST_HELD``
-    vectors a block and computed again past that."""
+    vectors a block and computed again past that.
+
+    The launch knobs ask for a route (``cluster`` 1 or 0; the launcher
+    refuses the cluster route past its capacity) and for ``threads`` a
+    block in place of the above (a power of two, 32..1024)."""
     nv = max(1, -(-N // 4))
-    cluster = nv <= DIST_CLUSTER * DIST_THREADS
-    if cluster:
+    if cluster not in (None, 0, 1):
+        raise ValueError(f"dist_update cluster={cluster!r}: 0 or 1")
+    use_cluster = (nv <= DIST_CLUSTER * DIST_THREADS if cluster is None
+                   else bool(cluster))
+    if use_cluster:
         blocks = min(DIST_CLUSTER, 1 << (-(-nv // 256) - 1).bit_length())
     else:
         blocks = sms
     tile = -(-nv // blocks)
-    if not cluster:
+    if not use_cluster:
         blocks = -(-nv // tile)
-    threads = min(DIST_THREADS if cluster else DIST_GRID_THREADS,
-                  max(32, 1 << (tile - 1).bit_length()))
-    return ref.DistSplit(cluster, blocks, threads, tile,
+    if threads is None:
+        threads = min(DIST_THREADS if use_cluster else DIST_GRID_THREADS,
+                      max(32, 1 << (tile - 1).bit_length()))
+    return ref.DistSplit(use_cluster, blocks, int(threads), tile,
                          min(tile, DIST_HELD))
+
+
+def _dist_applies(bucket, layout) -> bool:
+    """The cluster route holds at most ``DIST_CLUSTER * DIST_THREADS``
+    vectors: past them (on the bucket's N, which no raw N of it exceeds)
+    it does not apply."""
+    return (layout.get("cluster") != 1
+            or bucket[0] <= 4 * DIST_CLUSTER * DIST_THREADS)
 
 
 def _alpha_arg(alpha, dev: torch.device):
@@ -488,7 +575,7 @@ def _dist_update_launch(alpha, D: torch.Tensor, y: torch.Tensor,
 def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
                 *, block_n: Optional[int] = None,
                 backend: Optional[str] = None,
-                policy: Optional[KernelPolicy] = None):
+                policy: Optional[KernelPolicy] = None, **knobs):
     """Fused AdaBoost distribution update (paper eq. 4) -> ``(D', Z)``:
     w = D * exp(-alpha * y * h), Z = sum(w) as a 0-d f32 tensor,
     D' = w / (Z + 1e-30) (see :func:`ref.dist_update_ref`).  ``alpha`` is a
@@ -499,14 +586,17 @@ def dist_update(alpha, D: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
     (:func:`ref.dist_update_in_kernel_order`) and rounded once, so it is
     the same run to run.  A number or a CPU tensor alpha goes to the
     kernel by value, a CUDA tensor by pointer: the call never waits for
-    the card (its bucket comes from D alone)."""
+    the card (its bucket comes from D alone).  Knobs: ``cluster`` and
+    ``threads`` (:func:`dist_split`); Z's order follows the split, so its
+    bits may differ from launch to launch by its rounding."""
     return dispatch.dispatch("dist_update", (alpha, D, y, h),
-                             {"block_n": block_n}, policy=policy,
+                             {"block_n": block_n, **knobs}, policy=policy,
                              backend=backend)
 
 
 def _dist_update_cuda(alpha, D: torch.Tensor, y: torch.Tensor,
-                      h: torch.Tensor):
+                      h: torch.Tensor, *, cluster: Optional[int] = None,
+                      threads: Optional[int] = None):
     _card(D, y, h)
     N = D.shape[0]
     if D.dim() != 1 or y.shape != (N,) or h.shape != (N,):
@@ -517,8 +607,8 @@ def _dist_update_cuda(alpha, D: torch.Tensor, y: torch.Tensor,
         _alpha_arg(alpha, D.device)
         return (torch.empty((0,), dtype=F32, device=D.device),
                 torch.zeros((), dtype=F32, device=D.device))
-    return _dist_update_launch(alpha, D, y, h,
-                               dist_split(N, _sms(D.get_device())))
+    return _dist_update_launch(alpha, D, y, h, dist_split(
+        N, _sms(D.get_device()), cluster, threads))
 
 
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -551,7 +641,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
                     backend: Optional[str] = None,
-                    policy: Optional[KernelPolicy] = None) -> torch.Tensor:
+                    policy: Optional[KernelPolicy] = None,
+                    **knobs) -> torch.Tensor:
     """Softmax attention, q (B,H,T,d), k and v (B,Hkv,T,d) with H a
     multiple of Hkv (query head h reads key and value head h // (H/Hkv))
     -> (B,H,T,d) in q's dtype, f32 softmax at scale 1/sqrt(d); under
@@ -564,17 +655,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is copied once with padded rows).  ``out``, when given, is a (B,H,T,d)
     tensor of q's dtype with last stride 1 that receives the result and is
     returned: ``out=buf.transpose(1, 2)`` writes a (B,T,H,d) buffer, on
-    either backend."""
+    either backend.  Knob: ``stages``, the K/V ring's depth (bf16 2 in
+    place of its own 3; f32 has its own 2 only;
+    ``csrc/flash_attention.cu``)."""
     return dispatch.dispatch("flash_attention", (q, k, v),
                              {"causal": causal, "out": out,
-                              "block_q": block_q, "block_k": block_k},
-                             policy=policy, backend=backend)
+                              "block_q": block_q, "block_k": block_k,
+                              **knobs}, policy=policy, backend=backend)
 
 
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          out: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          out: Optional[torch.Tensor] = None,
+                          stages: Optional[int] = None) -> torch.Tensor:
     _card(q, k, v, *(() if out is None else (out,)))
     shape, kv_shape = q.shape, k.shape
     if len(shape) != 4 or len(kv_shape) != 4 or v.shape != kv_shape \
@@ -606,7 +699,8 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels.build import load
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides, B, H, kv_shape[1], T, d, int(causal),
-            int(dtype == torch.bfloat16), LOG2E / math.sqrt(d), _stream(q))
+            int(dtype == torch.bfloat16), LOG2E / math.sqrt(d),
+            _knob("stages", stages, 0), _stream(q))
     with _on_device(q):
         _launch("flash_attention", load().flash_attention_launch, *args)
     return out
@@ -652,6 +746,7 @@ from torch.utils.flop_counter import register_flop_formula  # noqa: E402
 register_flop_formula(FLASH_OP)(flash_flops)
 
 
+dispatch.CUDA_LAYOUT_APPLIES["dist_update"] = _dist_applies
 dispatch.CUDA_IMPLS.update({
     "stump_scan": _stump_scan_cuda,
     "stump_scan_batched": _stump_scan_batched_cuda,
