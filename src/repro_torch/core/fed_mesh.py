@@ -40,6 +40,23 @@ error are f32 scalar tensors on the host, updated once a sync from the
 global error.  So a round reads nothing back from the card, and a sync one
 scalar.
 
+While :func:`repro_torch.obs.active` (a tracer installed or a torch
+profiler running), the step records spans at each region: ``fed_mesh.step`` (attrs ``round``, ``synced``) holds
+``fed_mesh.round`` (``fed_mesh.fit``, ``fed_mesh.update``) and, on a
+sync, ``fed_mesh.sync`` (attrs ``n_buf``, ``slots``) with its parts in
+order: ``collect`` (the buffers gathered over the clients, the masks),
+``gather`` (``xv[:, :, feat]``, attr ``rows``), ``alpha`` (validation
+misses, server alpha, eq. 2), ``fold``, ``gather`` (``x[:, :, feat]``),
+``foreign`` (the foreign vote, eq. 4), ``margin`` (the validation vote,
+the global error's sum), ``read_back`` (the one ``.cpu()``) and
+``interval`` (eq. 1, the buffers reset), each ``fed_mesh.sync.<part>``.
+On a card the two gathers are timed there too (``device_ms``), and with
+a tracer installed the round and the sync as well.  Two counters at the
+sync's boundary: ``fed_mesh.slots_voted`` (M = K·cap a sync) and
+``fed_mesh.slots_used`` (K·n_buf).  :func:`init_state` runs in a
+``fed_mesh.init`` span.  Off, each region costs one no-op ``with``; no
+statement moves either way.
+
 The reference multiplies the foreign learners' M factors
 ``exp(-α_m·y·mx_m)``; the port takes the exponential of their sum, which
 the vote kernel computes in one launch (the two agree to a few f32 ulps of
@@ -95,23 +112,24 @@ def init_state(cfg: FedBoostConfig, n_clients: int, n_local: int,
     """The state before round 0.  ``n_clients`` is the clients this
     process holds (K/world in a process group)."""
     from repro_torch.device import resolve_device
-    dev = resolve_device(device)
-    sch = scheduling.init_state(cfg.scheduler)
-    return FedMeshState(
-        D=torch.full((n_clients, n_local), 1.0 / n_local, dtype=F32,
-                     device=dev),
-        buf_params=torch.zeros((n_clients, buffer_cap, 4), dtype=F32,
-                               device=dev),
-        buf_stamp=torch.zeros((n_clients, buffer_cap), dtype=I32,
-                              device=dev),
-        buf_count=torch.zeros((n_clients,), dtype=I32, device=dev),
-        ens_params=torch.zeros((ens_cap, 4), dtype=F32, device=dev),
-        ens_alpha=torch.zeros((ens_cap,), dtype=F32, device=dev),
-        ens_count=0,
-        val_margin=torch.zeros((n_clients, n_val_local), dtype=F32,
-                               device=dev),
-        interval=sch.interval, prev_err=sch.prev_error,
-        counter=0, last_sync=0, sync_count=0, key=int(key))
+    with obs.span("fed_mesh.init"):
+        dev = resolve_device(device)
+        sch = scheduling.init_state(cfg.scheduler)
+        return FedMeshState(
+            D=torch.full((n_clients, n_local), 1.0 / n_local, dtype=F32,
+                         device=dev),
+            buf_params=torch.zeros((n_clients, buffer_cap, 4), dtype=F32,
+                                   device=dev),
+            buf_stamp=torch.zeros((n_clients, buffer_cap), dtype=I32,
+                                  device=dev),
+            buf_count=torch.zeros((n_clients,), dtype=I32, device=dev),
+            ens_params=torch.zeros((ens_cap, 4), dtype=F32, device=dev),
+            ens_alpha=torch.zeros((ens_cap,), dtype=F32, device=dev),
+            ens_count=0,
+            val_margin=torch.zeros((n_clients, n_val_local), dtype=F32,
+                                   device=dev),
+            interval=sch.interval, prev_err=sch.prev_error,
+            counter=0, last_sync=0, sync_count=0, key=int(key))
 
 
 def fit_clients(x: Tensor, y: Tensor, D: Tensor, thresholds: Tensor,
@@ -210,102 +228,135 @@ def make_fed_boost_step(cfg: FedBoostConfig, thresholds: Tensor, *,
 
     def local_round(state: FedMeshState, x, y) -> FedMeshState:
         """One boosting round on every client (no communication)."""
-        params, eps = fit(x, y, state.D, thr_k)
-        rows = torch.arange(x.shape[0], device=x.device)
-        xf = x[rows, :, params[:, 0].long()]                     # (K, n)
-        margins = params[:, 2:3] * torch.sign(xf - params[:, 1:2] + 1e-12)
-        a = adaboost_alpha(eps)
-        D = _normalize(state.D * torch.exp(-a[:, None] * y * margins))
-        # every client appends once a round and a sync empties every
-        # buffer, so the ring slot is the same host int for all of them
-        slot = (state.counter - state.last_sync) % state.buf_params.shape[1]
-        bufp = state.buf_params.clone()
-        bufs = state.buf_stamp.clone()
-        bufp[:, slot] = params
-        bufs[:, slot] = state.counter
-        return state._replace(D=D, buf_params=bufp, buf_stamp=bufs,
-                              buf_count=state.buf_count + 1,
-                              counter=state.counter + 1)
+        with obs.span("fed_mesh.fit"):
+            params, eps = fit(x, y, state.D, thr_k)
+        with obs.span("fed_mesh.update"):
+            rows = torch.arange(x.shape[0], device=x.device)
+            xf = x[rows, :, params[:, 0].long()]                 # (K, n)
+            margins = params[:, 2:3] * torch.sign(xf - params[:, 1:2]
+                                                  + 1e-12)
+            a = adaboost_alpha(eps)
+            D = _normalize(state.D * torch.exp(-a[:, None] * y * margins))
+            # every client appends once a round and a sync empties every
+            # buffer, so the ring slot is the same host int for all of them
+            slot = ((state.counter - state.last_sync)
+                    % state.buf_params.shape[1])
+            bufp = state.buf_params.clone()
+            bufs = state.buf_stamp.clone()
+            bufp[:, slot] = params
+            bufs[:, slot] = state.counter
+            return state._replace(D=D, buf_params=bufp, buf_stamp=bufs,
+                                  buf_count=state.buf_count + 1,
+                                  counter=state.counter + 1)
 
     def sync(state: FedMeshState, x, y, xv, yv) -> FedMeshState:
         """Synchronization event: gather buffers, compensate, merge, update
         distributions and the adaptive interval."""
         k, cap = state.buf_params.shape[:2]
         dev = state.D.device
-        # ---- collective: buffers cross the client axis here ----
-        flat_p = coll.gather(state.buf_params).reshape(-1, 4)   # (M, 4)
-        flat_s = coll.gather(state.buf_stamp).reshape(-1)       # (M,)
-        M = flat_p.shape[0]
-        n_buf = min(state.counter - state.last_sync, cap)
-        valid = (torch.arange(cap, device=dev) < n_buf).repeat(M // cap)
-        # ownership: a client's own learners were applied to its local
-        # distribution at training time — skip them in the merged update
-        owner = torch.arange(M // cap, device=dev).repeat_interleave(cap)
-        mine = coll.offset + torch.arange(k, device=dev)
-        foreign = valid[None, :] & (owner[None, :] != mine[:, None])
+        with obs.span("fed_mesh.sync.collect"):
+            # ---- collective: buffers cross the client axis here ----
+            flat_p = coll.gather(state.buf_params).reshape(-1, 4)  # (M, 4)
+            flat_s = coll.gather(state.buf_stamp).reshape(-1)      # (M,)
+            M = flat_p.shape[0]
+            n_buf = min(state.counter - state.last_sync, cap)
+            valid = (torch.arange(cap, device=dev) < n_buf).repeat(M // cap)
+            # ownership: a client's own learners were applied to its local
+            # distribution at training time — skip them in the merged update
+            owner = torch.arange(M // cap, device=dev).repeat_interleave(cap)
+            mine = coll.offset + torch.arange(k, device=dev)
+            foreign = valid[None, :] & (owner[None, :] != mine[:, None])
 
-        feat = flat_p[:, 0].long()
-        thr, pol = flat_p[:, 1].contiguous(), flat_p[:, 2].contiguous()
+            feat = flat_p[:, 0].long()
+            thr, pol = flat_p[:, 1].contiguous(), flat_p[:, 2].contiguous()
         # server alpha on the global validation distribution: miss counts
         # on the local slices, summed over the clients
-        xv_sel = xv[:, :, feat].transpose(1, 2)                  # (K, M, nv)
-        mv = _stump_margins(xv_sel, thr, pol)
-        local_miss = torch.sum((torch.where(mv > 0, 1.0, -1.0)
-                                != yv[:, None, :]).to(F32), dim=2)
-        miss = coll.psum(local_miss)                             # (M,)
-        n_val = coll.psum(torch.full((k,), float(yv.shape[1]), dtype=F32,
-                                     device=dev))
-        alpha = adaboost_alpha(torch.clamp(miss / n_val, 0.02, 0.98))
-        tau = (state.counter - flat_s).to(F32)
-        alpha_t = torch.where(valid, compensate(alpha, tau, comp), 0.0)
+        with obs.span("fed_mesh.sync.gather", device=x.is_cuda,
+                      rows=xv.shape[1]):
+            xv_sel = xv[:, :, feat].transpose(1, 2)              # (K, M, nv)
+        with obs.span("fed_mesh.sync.alpha"):
+            mv = _stump_margins(xv_sel, thr, pol)
+            local_miss = torch.sum((torch.where(mv > 0, 1.0, -1.0)
+                                    != yv[:, None, :]).to(F32), dim=2)
+            miss = coll.psum(local_miss)                         # (M,)
+            n_val = coll.psum(torch.full((k,), float(yv.shape[1]),
+                                         dtype=F32, device=dev))
+            alpha = adaboost_alpha(torch.clamp(miss / n_val, 0.02, 0.98))
+            tau = (state.counter - flat_s).to(F32)
+            alpha_t = torch.where(valid, compensate(alpha, tau, comp), 0.0)
 
-        # fold into the replicated ensemble; entries past its capacity go
-        # to a spare row that is cut off again (the reference's drop)
-        cap_t = state.ens_params.shape[0]
-        pos = state.ens_count + torch.cumsum(valid.to(torch.int64), 0) - 1
-        pos = torch.where(valid & (pos < cap_t), pos, cap_t)
-        ens_p = torch.cat([state.ens_params, state.ens_params[:1]])
-        ens_a = torch.cat([state.ens_alpha, state.ens_alpha[:1]])
-        ens_p = ens_p.index_copy(0, pos, flat_p)[:cap_t]
-        ens_a = ens_a.index_copy(0, pos, alpha_t)[:cap_t]
+        with obs.span("fed_mesh.sync.fold"):
+            # fold into the replicated ensemble; entries past its capacity
+            # go to a spare row that is cut off again (the reference's drop)
+            cap_t = state.ens_params.shape[0]
+            pos = state.ens_count + torch.cumsum(valid.to(torch.int64), 0) - 1
+            pos = torch.where(valid & (pos < cap_t), pos, cap_t)
+            ens_p = torch.cat([state.ens_params, state.ens_params[:1]])
+            ens_a = torch.cat([state.ens_alpha, state.ens_alpha[:1]])
+            ens_p = ens_p.index_copy(0, pos, flat_p)[:cap_t]
+            ens_a = ens_a.index_copy(0, pos, alpha_t)[:cap_t]
 
-        thr_b, pol_b = thr.expand(k, M), pol.expand(k, M)
+            thr_b, pol_b = thr.expand(k, M), pol.expand(k, M)
         # the foreign learners' update of each local distribution:
         # D·exp(−y·Σ_m [valid ∧ foreign]·α_m·mx_m), one vote launch
-        xsel = x[:, :, feat].transpose(1, 2)                     # (K, M, n)
-        a_use = torch.where(foreign, alpha_t[None, :], 0.0)
-        s = kops.stump_vote_batched(xsel, thr_b, pol_b, a_use,
-                                    policy=policy)
-        D = _normalize(state.D * torch.exp(-y * s))
+        with obs.span("fed_mesh.sync.gather", device=x.is_cuda,
+                      rows=x.shape[1]):
+            xsel = x[:, :, feat].transpose(1, 2)                 # (K, M, n)
+        with obs.span("fed_mesh.sync.foreign"):
+            a_use = torch.where(foreign, alpha_t[None, :], 0.0)
+            s = kops.stump_vote_batched(xsel, thr_b, pol_b, a_use,
+                                        policy=policy)
+            D = _normalize(state.D * torch.exp(-y * s))
 
-        # the running validation margin and the global error
-        a_val = alpha_t.expand(k, M)
-        val_margin = state.val_margin + kops.stump_vote_batched(
-            xv_sel, thr_b, pol_b, a_val, policy=policy)
-        loc_err = torch.sum((torch.where(val_margin > 0, 1.0, -1.0)
-                             != yv).to(F32), dim=1)
-        g_err = (coll.psum(loc_err) / n_val).cpu()   # the sync's one read
+        with obs.span("fed_mesh.sync.margin"):
+            # the running validation margin and the global error
+            a_val = alpha_t.expand(k, M)
+            val_margin = state.val_margin + kops.stump_vote_batched(
+                xv_sel, thr_b, pol_b, a_val, policy=policy)
+            loc_err = torch.sum((torch.where(val_margin > 0, 1.0, -1.0)
+                                 != yv).to(F32), dim=1)
+            g_err = coll.psum(loc_err) / n_val
+        with obs.span("fed_mesh.sync.read_back"):
+            g_err = g_err.cpu()                      # the sync's one read
 
-        # adaptive interval (eq. 1) on the new global error
-        st = scheduling.adapt_interval(
-            scheduling.SchedulerState(state.interval, state.prev_err, True),
-            g_err, sch)
-        return state._replace(
-            D=D,
-            buf_params=torch.zeros_like(state.buf_params),
-            buf_stamp=torch.zeros_like(state.buf_stamp),
-            buf_count=torch.zeros_like(state.buf_count),
-            ens_params=ens_p, ens_alpha=ens_a,
-            ens_count=state.ens_count + (M // cap) * n_buf,
-            val_margin=val_margin,
-            interval=st.interval, prev_err=st.prev_error,
-            last_sync=state.counter,
-            sync_count=state.sync_count + 1)
+        with obs.span("fed_mesh.sync.interval"):
+            # adaptive interval (eq. 1) on the new global error
+            st = scheduling.adapt_interval(
+                scheduling.SchedulerState(state.interval, state.prev_err,
+                                          True),
+                g_err, sch)
+            return state._replace(
+                D=D,
+                buf_params=torch.zeros_like(state.buf_params),
+                buf_stamp=torch.zeros_like(state.buf_stamp),
+                buf_count=torch.zeros_like(state.buf_count),
+                ens_params=ens_p, ens_alpha=ens_a,
+                ens_count=state.ens_count + (M // cap) * n_buf,
+                val_margin=val_margin,
+                interval=st.interval, prev_err=st.prev_error,
+                last_sync=state.counter,
+                sync_count=state.sync_count + 1)
 
     def step(state: FedMeshState, x, y, xv, yv) -> FedMeshState:
-        state = local_round(state, x, y)
-        if state.counter - state.last_sync >= int(torch.floor(state.interval)):
-            state = sync(state, x, y, xv, yv)
+        traced = obs.active()
+        # the round's and the sync's own device times serve an installed
+        # tracer's readers; under a profiler alone only the gathers' do
+        timed = traced and x.is_cuda and obs.enabled()
+        with obs.span("fed_mesh.step", round=state.counter) as top:
+            with obs.span("fed_mesh.round", device=timed):
+                state = local_round(state, x, y)
+            due = state.counter - state.last_sync >= int(
+                torch.floor(state.interval))
+            top.set(synced=due)
+            if due:
+                cap = state.buf_params.shape[1]
+                n_buf = min(state.counter - state.last_sync, cap)
+                with obs.span("fed_mesh.sync", device=timed, n_buf=n_buf,
+                              slots=cap * cfg.n_clients):
+                    state = sync(state, x, y, xv, yv)
+                if traced:
+                    obs.count("fed_mesh.slots_voted", cap * cfg.n_clients)
+                    obs.count("fed_mesh.slots_used", n_buf * cfg.n_clients)
         return state
 
     return step

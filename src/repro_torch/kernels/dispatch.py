@@ -73,12 +73,19 @@ of key is refused.  ``save``/``load`` persist the table to JSON (schema
 v2; v1 backend-only tables load with empty layouts; default
 ``artifacts/torch_backend_calibration.json``).
 
-Under :func:`repro_torch.obs.profiling_enabled`, :func:`dispatch` also
-records a ``kernel.<name>`` span, ``kernel.launches``, ``kernel.compile_s``
-for the first launch of a (kernel, bucket, backend) (which holds the
-``nvcc`` build at first use) and ``kernel.wall_s`` after that, with the
-card synchronized before and after the timed call.  Off that path nothing
-synchronizes.
+While :func:`repro_torch.obs.active` (a tracer installed or a torch
+profiler running), :func:`dispatch` opens a ``kernel.<name>`` span at its
+entry, around the bucketer, the plan, the layout split and the launch,
+timed on the current CUDA stream where a tracer is installed and the
+call's tensors lie on a card, and counts ``kernel.launches``.  The first
+call of a (kernel, bucket, backend) puts its host seconds (which hold the
+``nvcc`` build at first use) into ``kernel.compile_s``; each later one
+puts them into ``kernel.dispatch_s``, and its device seconds into
+``kernel.device_s``: on a card once :func:`repro_torch.obs.resolve` has
+read the span's events, on the CPU the host seconds (the call has run
+when it returns).
+Nothing on the path waits for the card; with neither on, a call costs
+one check more than the launch.
 """
 from __future__ import annotations
 
@@ -667,8 +674,10 @@ class KernelPolicy:
                     raise ValueError(
                         f"{kernel} layout {layout_label(lay)} is not in "
                         f"LAYOUT_GRIDS[{kernel!r}]")
-        device = _device_type(call_device(kernel, args, kwargs))
-        sync = _sync_for(args)
+        dev = call_device(kernel, args, kwargs)
+        device = _device_type(dev)
+        sync = ((lambda: torch.cuda.synchronize(dev)) if device == "cuda"
+                else (lambda: None))
         names = backends if backends is not None else sorted(BACKENDS)
         samples: Dict[Tuple[str, LayoutKey], List[float]] = {}
         for name in names:
@@ -789,15 +798,6 @@ def set_default_policy(policy: KernelPolicy) -> KernelPolicy:
 # dispatch entry (the single funnel behind every ops.py wrapper)
 # ---------------------------------------------------------------------------
 
-def _sync_for(args: Sequence) -> Callable[[], None]:
-    """A function that waits for the card of a call on CUDA tensors (a
-    no-op for any other device)."""
-    t = args[-1]
-    if isinstance(t, torch.Tensor) and t.device.type == "cuda":
-        return lambda: torch.cuda.synchronize(t.device)
-    return lambda: None
-
-
 def _with_layout(kwargs: Optional[dict], layout: Layout, cuda: Layout
                  ) -> Tuple[dict, Layout, Layout]:
     """Split one call's kwargs three ways: the rest; the layout the JAX
@@ -823,14 +823,13 @@ def _with_layout(kwargs: Optional[dict], layout: Layout, cuda: Layout
             cuda if knobs is None else knobs)
 
 
-def dispatch(kernel: str, args: Sequence, kwargs: Optional[dict] = None, *,
-             policy: Optional[KernelPolicy] = None,
-             backend: Optional[str] = None):
-    """Resolve a backend and its launch layout for this call and run it."""
-    pol = policy if policy is not None else _DEFAULT_POLICY
+def _plan_call(pol: KernelPolicy, kernel: str, args: Sequence,
+               kwargs: Optional[dict], backend: Optional[str],
+               device: torch.device) -> Tuple[object, Bucket, dict]:
+    """The call's backend, bucket and launch kwargs, its layouts
+    recorded."""
     bucket = _BUCKETERS[kernel](*args)
-    be, layout, cuda = pol._plan(kernel, bucket, backend,
-                                 call_device(kernel, args, kwargs))
+    be, layout, cuda = pol._plan(kernel, bucket, backend, device)
     if be.name == "torch":
         knobs = sorted(k for k, v in (kwargs or {}).items()
                        if k in _CUDA_SET and v is not None)
@@ -843,23 +842,33 @@ def dispatch(kernel: str, args: Sequence, kwargs: Optional[dict] = None, *,
     if cuda:
         kwargs = {**kwargs, **cuda}
     pol.cuda_layout_choices[(kernel, bucket)] = cuda
-    if not obs.profiling_enabled():
+    return be, bucket, kwargs
+
+
+def dispatch(kernel: str, args: Sequence, kwargs: Optional[dict] = None, *,
+             policy: Optional[KernelPolicy] = None,
+             backend: Optional[str] = None):
+    """Resolve a backend and its launch layout for this call and run it."""
+    pol = policy if policy is not None else _DEFAULT_POLICY
+    device = call_device(kernel, args, kwargs)
+    if not obs.active():
+        be, _, kwargs = _plan_call(pol, kernel, args, kwargs, backend, device)
         return be.run(kernel, *args, **kwargs)
-    # profiling path: timing a launch means waiting for the card, so this
-    # runs only while obs profiling is switched on
-    blabel = bucket_label(bucket)
-    sync = _sync_for(args)
-    with obs.span(f"kernel.{kernel}", backend=be.name, bucket=blabel):
-        sync()
-        t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    # the device time serves an installed tracer's readers (obs_report,
+    # calibration_check); a profiler alone sees the kernels on its own
+    timed = on_card and obs.enabled()
+    with obs.span(f"kernel.{kernel}", device=timed) as sp:
+        be, bucket, kwargs = _plan_call(pol, kernel, args, kwargs, backend,
+                                        device)
+        blabel = bucket_label(bucket)
+        sp.set(backend=be.name, bucket=blabel)
         out = be.run(kernel, *args, **kwargs)
-        sync()
-        dt = time.perf_counter() - t0
     reg = obs.get_registry()
     labels = dict(kernel=kernel, bucket=blabel, backend=be.name)
-    # the first profiled launch of a (kernel, bucket, backend) pays the
-    # build (nvcc at first use) inside the timed region — keep it out of
-    # the steady-state wall_s histogram (calibration_check reads p50s)
+    # the first call of a (kernel, bucket, backend) pays the build (nvcc
+    # at first use) on the host: keep it out of the steady-state
+    # histograms (calibration_check reads their p50s)
     seen = getattr(reg, "_kernel_seen", None)
     if seen is None:
         seen = set()
@@ -868,9 +877,14 @@ def dispatch(kernel: str, args: Sequence, kwargs: Optional[dict] = None, *,
     seen.add((kernel, blabel, be.name))
     reg.counter("kernel.launches", **labels).inc()
     if first:
-        reg.histogram("kernel.compile_s", **labels).observe(dt)
+        reg.histogram("kernel.compile_s", **labels).observe(sp.t1 - sp.t0)
     else:
-        reg.histogram("kernel.wall_s", **labels).observe(dt)
+        reg.histogram("kernel.dispatch_s", **labels).observe(sp.t1 - sp.t0)
+        device_s = reg.histogram("kernel.device_s", **labels)
+        if timed:
+            sp.device_sink = device_s
+        elif not on_card:       # a CPU call has run when it returns
+            device_s.observe(sp.t1 - sp.t0)
     return out
 
 
@@ -880,8 +894,9 @@ def calibration_check(policy: Optional[KernelPolicy] = None,
     """Check the calibration table against observed launch timings.
 
     For every (kernel, bucket) the policy has a calibrated winner for,
-    compare the winner's observed p50 wall time (the ``kernel.wall_s``
-    histograms profiled dispatches record; first launches land in
+    compare the winner's observed p50 device time (the ``kernel.device_s``
+    histograms that traced dispatches on a card fill once
+    :func:`repro_torch.obs.resolve` has run; first launches land in
     ``kernel.compile_s``) against every other backend observed on the same
     bucket.  Backends with fewer than ``min_count`` observations are
     ignored.  Returns one flag dict per entry where a non-winner was
@@ -892,7 +907,7 @@ def calibration_check(policy: Optional[KernelPolicy] = None,
     min_count = max(1, int(min_count))
     observed: Dict[Tuple[str, str], Dict[str, object]] = {}
     for name, labels, h in reg.histograms():
-        if name != "kernel.wall_s" or h.count < min_count:
+        if name != "kernel.device_s" or h.count < min_count:
             continue
         key = (labels.get("kernel", ""), labels.get("bucket", ""))
         observed.setdefault(key, {})[labels.get("backend", "")] = h

@@ -13,9 +13,11 @@ package's schema, ``src/repro/obs/README.md``) and prints:
 * a **per-phase breakdown** by namespace prefix (``train.`` / ``serve.`` /
   ``kernel.`` / ``gossip.`` / ...) of self wall time;
 * with ``--metrics``, the **kernel profile** table from the registry
-  snapshot's ``kernel.wall_s{...}`` histograms, cross-checked against the
-  persisted backend-calibration table (a calibrated winner that the live
-  timings contradict is flagged for recalibration);
+  snapshot's ``kernel.device_s{...}`` histograms (each traced dispatch's
+  time on the card, from the CUDA events of its ``kernel.<name>`` span),
+  cross-checked against the persisted backend-calibration table (a
+  calibrated winner that the live timings contradict is flagged for
+  recalibration);
 * with ``--folded``, flamegraph-style folded stacks (``a;b;c <usec>`` of
   self time per unique stack — feed to any FlameGraph renderer).
 
@@ -277,15 +279,15 @@ def print_stitch(st: Dict) -> None:
 
 
 # ------------------------------------------------------------ kernel profile
-_LABELED = re.compile(r"^kernel\.wall_s\{(.*)\}$")
+_LABELED = re.compile(r"^kernel\.device_s\{(.*)\}$")
 
 def kernel_profile(metrics_snapshot: Dict,
                    calibration_path: Optional[str] = None
                    ) -> Tuple[List[Dict], List[str]]:
     """(profile rows, calibration warnings) from a registry snapshot.
 
-    Rows come from ``kernel.wall_s{backend=...,bucket=...,kernel=...}``
-    histograms.  When a calibration table exists, each (kernel, bucket)
+    Rows come from ``kernel.device_s{backend=...,bucket=...,kernel=...}``
+    histograms (device seconds a call).  When a calibration table exists, each (kernel, bucket)
     observed on 2+ backends is checked: if the calibrated winner's p50 is
     not the fastest observed, a recalibration warning is emitted."""
     rows: List[Dict] = []
@@ -295,7 +297,7 @@ def kernel_profile(metrics_snapshot: Dict,
         if not m:
             continue
         labels = dict(kv.split("=", 1) for kv in m.group(1).split(","))
-        n = launches.get(key.replace("kernel.wall_s", "kernel.launches"),
+        n = launches.get(key.replace("kernel.device_s", "kernel.launches"),
                          h.get("count", 0))
         rows.append({"kernel": labels.get("kernel", "?"),
                      "bucket": labels.get("bucket", "?"),

@@ -109,6 +109,7 @@ def main(argv=None) -> int:
                        engine=args.engine, device=args.device)
     print(summarize(rep))
     if tracer is not None:
+        obs.resolve()          # the kernel spans' device seconds
         if args.trace_out:
             print(f"trace: {len(tracer)} spans -> "
                   f"{tracer.export_jsonl(args.trace_out)}")

@@ -252,6 +252,7 @@ def main(argv=None) -> dict:
               f"staleness {t['mean_staleness_s']:.2f}s")
 
     if tracer is not None:
+        obs.resolve()          # the kernel spans' device seconds
         if args.trace:
             print(f"  trace: {len(tracer)} spans -> "
                   f"{tracer.export_jsonl(args.trace)}")

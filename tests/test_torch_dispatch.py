@@ -20,6 +20,7 @@ from repro_torch.kernels import dispatch, ops, ref  # noqa: E402
 from repro_torch.kernels.dispatch import (  # noqa: E402
     BACKENDS, DEFAULT_LAYOUTS, ENV_VAR, CalEntry, KernelPolicy, bucket_label,
     bucket_of, calibration_check, canonical, layout_key, platform_default)
+from repro_torch.obs import trace  # noqa: E402
 from repro_torch.obs.registry import MetricsRegistry  # noqa: E402
 
 
@@ -519,22 +520,29 @@ def test_flash_attention_out_passes_through_the_torch_backend():
 # --------------------------------------------------------------- profiling
 
 def test_dispatch_profiling_records_launches_and_wall_time():
+    """A traced dispatch: one span, the launches counted, the first call's
+    host seconds in ``kernel.compile_s``, the next one's in
+    ``kernel.dispatch_s`` and, on CPU tensors, ``kernel.device_s``."""
     args = _stump_vote_args()
     with obs.tracing() as tr:
         out = dispatch.dispatch("stump_vote_batched", args, backend="torch")
         out2 = dispatch.dispatch("stump_vote_batched", args,
                                  backend="plain")
+        obs.resolve()
         reg = obs.get_registry()
-        walls = [(labels, h) for name, labels, h in reg.histograms()
-                 if name == "kernel.wall_s"]
+        hosts = [(labels, h) for name, labels, h in reg.histograms()
+                 if name == "kernel.dispatch_s"]
         compiles = [(labels, h) for name, labels, h in reg.histograms()
                     if name == "kernel.compile_s"]
+        devices = [(labels, h) for name, labels, h in reg.histograms()
+                   if name == "kernel.device_s"]
         counters = [(labels, c) for name, labels, c in reg.counters()
                     if name == "kernel.launches"]
         spans = tr.finished()
     assert out.shape == out2.shape == (1, 8)
-    assert len(walls) == 1 and len(compiles) == 1 and len(counters) == 1
-    labels, h = walls[0]
+    assert len(hosts) == 1 and len(compiles) == 1 and len(counters) == 1
+    assert len(devices) == 1
+    labels, h = hosts[0]
     assert labels == {"kernel": "stump_vote_batched",
                       "bucket": jdispatch.bucket_label(jdispatch.bucket_of(
                           "stump_vote_batched",
@@ -545,9 +553,132 @@ def test_dispatch_profiling_records_launches_and_wall_time():
     assert clabels == labels
     assert ch.count == 1 and ch.sum > 0
     assert counters[0][1].value == 2
-    ksp = next(d for d in spans if d["name"].startswith("kernel."))
-    assert ksp["name"] == "kernel.stump_vote_batched"
-    assert ksp["attrs"]["bucket"] == labels["bucket"]
+    ksp = [d for d in spans if d["name"].startswith("kernel.")]
+    assert [d["name"] for d in ksp] == ["kernel.stump_vote_batched"] * 2
+    assert ksp[0]["attrs"] == {"backend": "torch", "bucket": labels["bucket"]}
+    assert h.sum == pytest.approx(ksp[1]["t1"] - ksp[1]["t0"])
+    assert devices[0][0] == labels and devices[0][1].sum == h.sum
+
+
+class _FakeEvent:
+    """A CUDA event on the host clock: what a span records on a card."""
+    synced = 0
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        import time
+        self.t = time.perf_counter()
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        _FakeEvent.synced += 1
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def test_traced_dispatch_on_a_card_fills_device_s(monkeypatch):
+    """Where the call's tensors lie on a card, the span carries an event
+    pair; ``obs.resolve`` waits once and puts each steady call's device
+    seconds into ``kernel.device_s`` (read by ``calibration_check``)."""
+    class CountingBackend:
+        name = "counting"
+
+        def available(self, device):
+            return True
+
+        def run(self, kernel, *args, **kwargs):
+            return torch.zeros((args[0].shape[0], args[0].shape[2]))
+
+    monkeypatch.setitem(BACKENDS, "counting", CountingBackend())
+    monkeypatch.setattr(dispatch, "call_device",
+                        lambda *a, **k: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(trace, "_current_stream", lambda: None)
+    monkeypatch.setattr(_FakeEvent, "synced", 0)
+    args = _stump_vote_args()
+    with obs.tracing() as tr:
+        for _ in range(4):
+            dispatch.dispatch("stump_vote_batched", args, backend="counting")
+        assert "device_ms" not in tr.finished()[-1]["attrs"]
+        obs.resolve()
+        reg = obs.get_registry()
+        dev = [h for name, _, h in reg.histograms()
+               if name == "kernel.device_s"]
+        spans = tr.finished()
+    assert _FakeEvent.synced == 1
+    assert all(d["attrs"]["device_ms"] >= 0 for d in spans)
+    assert len(dev) == 1 and dev[0].count == 3
+    assert dev[0].sum == pytest.approx(
+        sum(d["attrs"]["device_ms"] for d in spans[1:]) * 1e-3)
+    obs.resolve()                              # nothing left to wait for
+    assert _FakeEvent.synced == 1
+
+
+def test_profiled_dispatch_on_a_card_records_no_events(monkeypatch):
+    """Under a torch profiler alone, a call on a card opens its span and
+    range but records no event pair: no reader of the profiled tracer
+    reads a kernel's ``device_ms``, and ``kernel.device_s`` stays
+    empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    class CountingBackend:
+        name = "counting"
+
+        def available(self, device):
+            return True
+
+        def run(self, kernel, *args, **kwargs):
+            return torch.zeros((args[0].shape[0], args[0].shape[2]))
+
+    def no_event(*a, **k):
+        raise AssertionError("an event recorded under the profiler alone")
+
+    monkeypatch.setitem(BACKENDS, "counting", CountingBackend())
+    monkeypatch.setattr(dispatch, "call_device",
+                        lambda *a, **k: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    obs.disable()
+    if obs.profiled_tracer() is not None:
+        obs.profiled_tracer().clear()
+    reg = MetricsRegistry()
+    old = obs.set_registry(reg)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(3):
+                dispatch.dispatch("stump_vote_batched", _stump_vote_args(),
+                                  backend="counting")
+        obs.resolve()
+    finally:
+        obs.set_registry(old)
+    spans = obs.profiled_tracer().finished()
+    assert [d["name"] for d in spans] == ["kernel.stump_vote_batched"] * 3
+    assert not any("device_ms" in d["attrs"] for d in spans)
+    names = {name for name, _, h in reg.histograms() if h.count}
+    assert names == {"kernel.compile_s", "kernel.dispatch_s"}
+
+
+def test_traced_dispatch_never_synchronizes(monkeypatch, tmp_path):
+    """A traced dispatch, its resolve and its export run to the end with
+    ``torch.cuda.synchronize`` raising."""
+    def refuse(*a, **k):
+        raise AssertionError("synchronize on a traced dispatch")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    args = _stump_vote_args()
+    with obs.tracing() as tr:
+        for _ in range(2):
+            out = dispatch.dispatch("stump_vote_batched", args,
+                                    backend="torch")
+        obs.resolve()
+        path = tr.export_jsonl(tmp_path / "kernel.jsonl")
+    assert out.shape == (1, 8)
+    assert [d["name"] for d in obs.load_jsonl(path)] == \
+        ["kernel.stump_vote_batched"] * 2
 
 
 def test_first_seen_split_is_per_kernel_bucket_backend():
@@ -573,14 +704,14 @@ def test_first_seen_split_is_per_kernel_bucket_backend():
             reg = obs.get_registry()
             compiles = [(labels, h) for name, labels, h
                         in reg.histograms() if name == "kernel.compile_s"]
-            walls = [(labels, h) for name, labels, h in reg.histograms()
-                     if name == "kernel.wall_s"]
+            hosts = [(labels, h) for name, labels, h in reg.histograms()
+                     if name == "kernel.dispatch_s"]
     finally:
         BACKENDS.pop("counting")
     assert CountingBackend.calls == 4
     assert len(compiles) == 2
     assert all(h.count == 1 for _, h in compiles)
-    assert len(walls) == 1 and walls[0][1].count == 2
+    assert len(hosts) == 1 and hosts[0][1].count == 2
 
 
 def test_dispatch_unprofiled_records_nothing():
@@ -591,6 +722,7 @@ def test_dispatch_unprofiled_records_nothing():
         dispatch.dispatch("stump_vote_batched", _stump_vote_args(),
                           backend="torch")
         assert len(reg) == 0
+        assert not obs.active()
     finally:
         obs.set_registry(old)
 
@@ -600,10 +732,13 @@ def test_calibration_check_flags_stale_winner():
     bucket = (128, 8, 8)
     bl = bucket_label(bucket)
     for _ in range(20):
-        reg.histogram("kernel.wall_s", kernel="k", bucket=bl,
+        reg.histogram("kernel.device_s", kernel="k", bucket=bl,
                       backend="cuda").observe(5e-3)      # calibrated winner
-        reg.histogram("kernel.wall_s", kernel="k", bucket=bl,
+        reg.histogram("kernel.device_s", kernel="k", bucket=bl,
                       backend="torch").observe(1e-3)     # actually faster
+        # host seconds of the same calls are not what calibration reads
+        reg.histogram("kernel.dispatch_s", kernel="k", bucket=bl,
+                      backend="cuda").observe(1e-6)
     pol = KernelPolicy(table={("k", bucket): "cuda"}, env_var=None)
     flags = calibration_check(policy=pol, registry=reg)
     assert len(flags) == 1

@@ -236,9 +236,12 @@ def test_chain_hashes_unaffected_by_tracing():
 
 
 # ---------------------------------------------------------- kernel profile
-def _metrics_snapshot():
+def _metrics_snapshot(times="kernel.device_s"):
     """A registry snapshot in the JAX package's format: two backends timed
-    on one (kernel, bucket), one on another, plus an unrelated entry."""
+    on one (kernel, bucket), one on another, plus an unrelated entry.  The
+    port's kernel table reads the card's time a call (``kernel.device_s``),
+    the JAX package's the host's (``kernel.wall_s``): ``times`` names the
+    histograms."""
     hist = lambda p50, p99, n: {"count": n, "p50": p50, "p99": p99}
     return {
         "counters": {
@@ -246,18 +249,19 @@ def _metrics_snapshot():
             "kernel.launches{backend=xla,bucket=8x64,kernel=vote}": 7,
             "serve.requests": 12},
         "histograms": {
-            "kernel.wall_s{backend=interpret,bucket=8x64,kernel=vote}":
+            f"{times}{{backend=interpret,bucket=8x64,kernel=vote}}":
                 hist(2e-3, 4e-3, 5),
-            "kernel.wall_s{backend=xla,bucket=8x64,kernel=vote}":
+            f"{times}{{backend=xla,bucket=8x64,kernel=vote}}":
                 hist(1e-3, 3e-3, 7),
-            "kernel.wall_s{backend=xla,bucket=1x16,kernel=scan}":
+            f"{times}{{backend=xla,bucket=1x16,kernel=scan}}":
                 hist(5e-4, 6e-4, 2),
+            "kernel.dispatch_s{backend=xla,bucket=1x16,kernel=scan}":
+                hist(9e-6, 9e-6, 2),
             "serve.latency_s": hist(1e-3, 2e-3, 12)}}
 
 
 @pytest.mark.parametrize("winner", ["interpret", "xla", None])
 def test_kernel_profile_equals_reference(tmp_path, winner):
-    snap = _metrics_snapshot()
     path = None
     if winner is not None:
         path = tmp_path / "calibration.json"
@@ -265,11 +269,15 @@ def test_kernel_profile_equals_reference(tmp_path, winner):
             {"kernel": "vote", "bucket": [8, 64], "backend": winner},
             {"kernel": "scan", "bucket": [1, 16], "backend": "xla"}]}))
         path = str(path)
-    rows, warns = T.kernel_profile(snap, path)
-    assert (rows, warns) == J.kernel_profile(snap, path)
+    rows, warns = T.kernel_profile(_metrics_snapshot(), path)
+    assert (rows, warns) == J.kernel_profile(
+        _metrics_snapshot("kernel.wall_s"), path)
     assert [(r["kernel"], r["backend"], r["launches"]) for r in rows] == [
         ("vote", "interpret", 5), ("scan", "xla", 2), ("vote", "xla", 7)]
     assert len(warns) == (1 if winner == "interpret" else 0)
+    # host seconds make no row of the port's table
+    assert T.kernel_profile(_metrics_snapshot("kernel.wall_s"), path) == \
+        ([], [])
 
 
 # --------------------------------------------------------------------- CLI
@@ -280,11 +288,12 @@ def test_cli_output_equals_reference(span_lists, tmp_path, capsys):
         f.write(json.dumps({"meta": {"schema": 2, "dropped": 0}}) + "\n")
         for s in spans:
             f.write(json.dumps(s) + "\n")
-    metrics = tmp_path / "metrics.json"
-    metrics.write_text(json.dumps(_metrics_snapshot()))
     outs = []
-    for mod, tag in ((J, "ref"), (T, "port")):
+    for mod, tag, times in ((J, "ref", "kernel.wall_s"),
+                            (T, "port", "kernel.device_s")):
         folded = tmp_path / f"{tag}.folded"
+        metrics = tmp_path / f"{tag}.metrics.json"
+        metrics.write_text(json.dumps(_metrics_snapshot(times)))
         rc = mod.main([str(trace), "--check", "--stitch", "auto",
                        "--metrics", str(metrics), "--calibration",
                        str(tmp_path / "none.json"), "--folded", str(folded)])
