@@ -47,8 +47,11 @@ nonzero (there is no CPU fall-back):
    card's busy time by kernel;
 7. fleet: the vectorized fleet profile on ``mobile_100k``'s 100,000
    clients.  (1) ``stump_scan_batched`` against its plain version on the
-   card, on the scenario's first fit wave and on a large-shard batch, bit
-   for bit on both load routes, each timed, with the FP64 pipe's floor;
+   card, on the scenario's first fit wave, on a large-shard batch (both
+   on the one-thread-a-row route) and at ``fed_mesh``'s ten covtype
+   shards (the split route, also against its order's emulation), bit for
+   bit on each route (the row route's 16-byte and 4-byte loads, the
+   split), each timed, with the FP64 pipe's floor;
    (2) the scenario at full width through ``run_scenario``, legacy trace,
    seed 0, both modes, cut from 4 rounds to 2: baseline counters and clock
    must equal the JAX package's, enhanced ones are printed beside its;
@@ -1819,6 +1822,7 @@ FLEET_LOCKSTEP_CLIENTS = 4096   # FederatedBoostEngine.FLEET_AUTO_CLIENTS
 PROFILE_SYNCS = 2000            # the enhanced run's profiled window
 SCAN_TOL = 1e-7                 # both sum in f64 in one order: expect 0
 LARGE_SCAN = (4096, 333, 64, 16)  # B, N, F, T: edge_vision-sized shards
+MESH_SCAN = (10, 43575, 54, 16)   # fed_mesh's ten covtype shards
 INT_FIELDS = ("uplink_bytes", "downlink_bytes", "n_messages", "n_syncs",
               "learners_merged", "rounds_unavailable")
 # The JAX package's run of the full-width check's configuration, on a CPU:
@@ -1883,10 +1887,12 @@ def scan_batched_bound(x, y, w, thr):
 def check_scan_batched():
     """Phase 7.1: the kernel against its plain version on the card, on the
     first fit wave of mobile_100k (its X, Y, D0 and threshold grids, built
-    by the fleet on the card) and on a large-shard batch: bit-equal (and
-    within ``SCAN_TOL``), through the wrapper and on each load route
-    (16-byte and 4-byte, through the library's launcher), with each route's device
-    time, the bytes bound, its share and the TB/s, and the FP64 pipe's
+    by the fleet on the card), on a large-shard batch and at
+    ``MESH_SCAN`` (the split route, held to
+    ``ref.scan_batched_in_kernel_order`` too): bit-equal (and within
+    ``SCAN_TOL``), through the wrapper and on each route through the
+    library's launcher (the row route's 16-byte and 4-byte loads; the
+    split, whose loads are 4-byte, once), with each route's device time, the bytes bound, its share and the TB/s, and the FP64 pipe's
     floor at the SM clock under load."""
     from repro_torch.core import FederatedBoostEngine
     from repro_torch.core.fleet import FleetCore
@@ -1912,8 +1918,15 @@ def check_scan_batched():
                     w, 0.0)                      # padding rows weigh 0
     rows = torch.randint(0, N, (B, F, T), generator=gen, device=CARD)
     thr = torch.gather(x.transpose(1, 2), 2, rows).contiguous()
+    B, N, F, T = MESH_SCAN
+    mx = torch.randn((B, N, F), generator=gen, device=CARD)
+    my = torch.where(torch.rand((B, N), generator=gen, device=CARD) < 0.5,
+                     1.0, -1.0)
+    mw = torch.rand((B, N), generator=gen, device=CARD)   # exact sums
+    rows = torch.randint(0, N, (B, F, T), generator=gen, device=CARD)
+    mthr = torch.gather(mx.transpose(1, 2), 2, rows).contiguous()
     cases = {"main": (core.X, core.Y, core.D, core.THR),
-             "large": (x, y, w, thr)}
+             "large": (x, y, w, thr), "mesh": (mx, my, mw, mthr)}
     fn = load().stump_scan_batched_launch
     results = {}
     for label, args in cases.items():
@@ -1927,16 +1940,25 @@ def check_scan_batched():
                                  f"not bit-equal")
         B, N, F = args[0].shape
         T = args[3].shape[2]
+        split = ops.scan_batched_split(B, N, F, T, ops._sms(0))
+        if split is not None and not torch.equal(
+                got.cpu(), ref.scan_batched_in_kernel_order(
+                    *[a.cpu() for a in args], split)):
+            raise AssertionError(f"stump_scan_batched {label}: not its "
+                                 f"order's emulation")
         b, by = scan_batched_bound(*args)
         nbytes = 4 * (B * N * F + 2 * B * N + 2 * B * F * T)
+        # the split takes 4-byte loads whatever vec says: timed once
         routes = {}
-        for route, vec in (("16-byte", 1), ("4-byte", 0)):
+        for route, vec in ((("split", 1),) if split is not None
+                           else (("16-byte", 1), ("4-byte", 0))):
             out = torch.empty_like(want)
             ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
             stream = torch._C._cuda_getCurrentRawStream(0)
 
-            def call(ptrs=ptrs, vec=vec, route=route):
-                rc = fn(*ptrs, B, N, F, T, vec, 0, 0, stream)
+            def call(ptrs=ptrs, vec=vec, route=route, split=split):
+                rc = fn(*ptrs, B, N, F, T, vec, 0, 0,
+                        *(split or (0, 0, 0, 0)), stream)
                 if rc != 0:
                     raise RuntimeError(f"{route} scan: CUDA error {rc}")
             call()
@@ -1955,7 +1977,8 @@ def check_scan_batched():
         mhz = sm_clock_mhz()
         r = results[label] = dict(
             shape=[B, N, F, T], max_abs_err=err, bit_equal=True,
-            load_route="16-byte" if ops.scan_vec(T, args[3]) else "4-byte",
+            load_route=("split" if split is not None else "16-byte"
+                        if ops.scan_vec(T, args[3]) else "4-byte"),
             ms=ms, kernel_ms=kernel_ms,
             host_ms=ms - kernel_ms,
             plain_ms=cuda_ms(lambda: ref.stump_scan_batched_ref(*args), 3),
@@ -1976,7 +1999,7 @@ def check_scan_batched():
                 f"kernel_ms={rr['kernel_ms']:.4f} "
                 f"bound_share={rr['bound_share']:.4f} "
                 f"TB/s={rr['tb_per_s']:.3f}")
-    del core, eng, cases, args
+    del core, eng, cases, args, mx, my, mw, mthr
     torch.cuda.empty_cache()
     return results
 

@@ -36,7 +36,7 @@ SIGNATURES = {
     "stump_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P],
     "stump_scan_batched_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                                  _I, _P],
+                                  _I, _I, _I, _I, _I, _P],
     "stump_vote_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stump_vote_fp_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P],

@@ -10,7 +10,8 @@
 // (src/repro/kernels/dispatch.py:245), a `vmap` of it over a fleet batch.
 // `stump_scan` fits one stump (models/weak.py:fit_stump, B = 1);
 // `stump_scan_batched` fits a wave of the fleet profile (core/fleet.py), up
-// to 100,000 client shards of a few rows each.
+// to 100,000 client shards of a few rows each, and every client of
+// fed_mesh's step (core/fed_mesh.py), a few shards of many rows.
 //
 // Every sum is taken in f64 and rounded once to f32, as the plain versions
 // (kernels/ref.py) do: errors that tie in exact arithmetic tie on every
@@ -30,20 +31,46 @@
 // route), else with 4-byte ones.  T > 16 walks the rows once for each
 // further chunk of 16.
 //
-// stump_scan_batched: one thread a (b, f) row, flat over gridDim.x (B
-// reaches 100,000; gridDim.y stops at 65,535), blocks of 64 threads, rows
-// walked in order, so the kernel gives the plain version's bits
-// (ref.stump_scan_batched_ref).  Bound on the H100: at the fleet's wave
-// (100,000, 4, 48, 16) the bytes (thresholds read and errors written, 307
-// MB each; 694 MB in all); at large shards (4096, 333, 64, 16) the bytes
-// (394 MB, mostly x), with the FP64 pipe (1.4 G fmas, 64 an SM a clock)
-// and the issue of two instructions a cell close behind.  The design
-// before this one gave each output cell a thread: one 4-byte threshold
-// load in flight a thread (8 KB an SM, where Little's law asks for some
-// 25 KB), two 64-bit divisions before it, and at large N three loads a
-// row a cell.  Here a thread keeps 64 bytes of thresholds in flight from
-// its first instruction, makes one 32-bit division, and loads x once a
-// row for 16 cells, 8 rows ahead at large N.
+// stump_scan_batched, two routes, one launch each; kernels/ops.py:
+// scan_batched_split picks one from (B, N, F, T) and the SM count.
+// - One thread a (b, f) row, flat over gridDim.x (B reaches 100,000;
+//   gridDim.y stops at 65,535), blocks of 64 threads, rows walked in
+//   order, so the kernel gives the plain version's bits
+//   (ref.stump_scan_batched_ref).  Taken wherever its blocks reach every
+//   SM or a slot has few rows.  Bound on the H100: at the fleet's wave
+//   (100,000, 4, 48, 16) the bytes (thresholds read and errors written,
+//   307 MB each; 694 MB in all); at large shards (4096, 333, 64, 16) the
+//   bytes (394 MB, mostly x), with the FP64 pipe (1.4 G fmas, 64 an SM a
+//   clock) and the issue of two instructions a cell close behind.  The
+//   design before this one gave each output cell a thread: one 4-byte
+//   threshold load in flight a thread (8 KB an SM, where Little's law
+//   asks for some 25 KB), two 64-bit divisions before it, and at large N
+//   three loads a row a cell.  Here a thread keeps 64 bytes of thresholds
+//   in flight from its first instruction, makes one 32-bit division, and
+//   loads x once a row for 16 cells, 8 rows ahead at large N.
+// - The split (stump_scan_batched_kernel_split), where B * F leaves SMs
+//   idle and N is long: fed_mesh's ten covtype shards, (10, 43575, 54,
+//   16), gave the row route 540 threads, 9 blocks of 64 on 132 SMs, each
+//   thread a chain of 43,575 rows (5.05 ms).  Each slot's rows are split
+//   as stump_scan's are (below), and a column group's G <= 8 blocks form
+//   one thread-block cluster that adds its block sums in distributed
+//   shared memory inside the launch: one kernel a call, no second pass,
+//   no scratch.  Bound on the H100 at that shape: the bytes (97.7 MB,
+//   29.2 us), with the FP64 fmas (377 M, 23 us at 1.98 GHz) and the issue
+//   of two instructions a cell close behind.  What the design does about
+//   it: a slot's column groups go to the SMs together, so the 32-byte
+//   pieces of a 216-byte row that neighbouring groups read share their
+//   sectors through L2 and x comes from HBM about once; the grid is one
+//   wave where it can be (3 blocks a group, 210 blocks of 256 threads at
+//   two an SM).  It runs at 0.093 ms, 31% of the bound: a thread walks a
+//   chunk of 454 rows with 16 f64 accumulators at the cap of 128
+//   registers (12 bytes spilled), two blocks an SM, and loads 4 rows
+//   ahead do not cover the latency at 16 warps an SM.  8 rows ahead
+//   spill more: 12% faster at this shape, up to 4% slower at the picks
+//   for four others.  A cooperative grid in place of the cluster (block
+//   sums through global scratch and grid.sync()) gave the same bits and
+//   ran 1.3% slower (0.0943 against 0.0931 ms).
+//   ref.scan_batched_in_kernel_order emulates its order on the CPU.
 //
 // stump_scan: B = 1 gives only F rows of thresholds (64 on the path), far
 // too few threads for 132 SMs, so the rows are split too: chunks of `rows`
@@ -65,10 +92,13 @@
 // 64, 16) the bytes (6.2 MB) and the FP64 pipe (24.6 M fmas), about 2 us
 // each.  The design before this one ran one block per feature (64 blocks:
 // 68 SMs idle at large N) with 16 shuffle trees a chunk of 16 thresholds.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -82,6 +112,13 @@ constexpr int kChunk = 16;        // thresholds a thread
 // one pass (a few rows each) and 4 otherwise
 constexpr int kMinBlocks = 2;     // blocks an SM: at most 128 registers
 constexpr int kMaxPerLane = 16;   // block sums a lane of the second pass
+// the split route of stump_scan_batched: blocks a column group (one
+// cluster; the portable cluster size) and the widest block, whose shared
+// memory (tree and cluster sums) stays under 48 KB
+constexpr int kMaxCluster = 8;
+constexpr int kSplitMaxCols = 64;
+// gridDim.y's limit: the split's (slot, chunk of 16 thresholds) pairs
+constexpr int kMaxGridY = 65535;
 
 // thresholds [0, tc) of a chunk into th (the rest are never compared)
 template <bool kVec>
@@ -236,6 +273,45 @@ __device__ __forceinline__ void walk(const float* xcol, int F, const float* y,
     walk_rows<false, kDepth>(xcol, F, y, w, n0, n1, tc, th, acc);
 }
 
+// A block's sum of each of its cells (c = t * cols + j, cols * 16 of
+// them) over its kb chunks, thread k * cols + j holding chunk k's sums in
+// acc: the chunks' sums to shared memory, [cell][k] with rows padded to S
+// doubles, then a cell's chunks as a grid of I rows of R (chunk i * R + q;
+// R = kb / 16 lanes a cell where kb >= 16, else 1): a pairwise tree over i
+// in one thread (zeros past I add nothing), then over q across the R
+// lanes.  emit(c, sum) runs once a cell, in the thread that holds it.
+template <typename Emit>
+__device__ __forceinline__ void block_sums(double* part,
+                                           const double (&acc)[kChunk],
+                                           int kb, int cols, int k, int j,
+                                           Emit emit) {
+  const int cells = cols * kChunk;
+  const int S = kb >= 16 ? kb + 1 : kb;
+#pragma unroll
+  for (int t = 0; t < kChunk; ++t) part[(t * cols + j) * S + k] = acc[t];
+  __syncthreads();
+  const int R = kb >= 16 ? kb / 16 : 1;
+  const int I = kb / R;
+  for (int base = 0; base < cells * R; base += kThreads) {
+    const int id = base + (int)threadIdx.x;
+    const int c = id / R;
+    const int q = id - c * R;
+    double v[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      v[i] = i < I && c < cells ? part[c * S + i * R + q] : 0.0;
+#pragma unroll
+    for (int h = 1; h < 16; h <<= 1) {
+#pragma unroll
+      for (int i = 0; i + h < 16; i += 2 * h) v[i] += v[i + h];
+    }
+    double sum = v[0];
+    for (int m = 1; m < R; m <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (q == 0 && c < cells) emit(c, sum);
+  }
+}
+
 // One thread a (b, f) row of thresholds: i = b * F + f over the flat grid.
 template <bool kVec, int kDepth>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -297,46 +373,18 @@ stump_scan_kernel(const float* __restrict__ x, const float* __restrict__ y,
     walk<kDepth>(x + f, F, y, w, (int)n0, (int)min((long long)N, n0 + rows),
                  tc, th, acc);
   }
-  // the block's sums of each cell: its kb chunks' sums to shared memory,
-  // [cell][k] with cell = t * cols + j, rows padded to S doubles
-  const int S = kb >= 16 ? kb + 1 : kb;
-#pragma unroll
-  for (int t = 0; t < kChunk; ++t) part[(t * cols + j) * S + k] = acc[t];
-  __syncthreads();
-  // a cell's chunks as a grid of I rows of R (chunk i * R + q; R = kb / 16
-  // lanes a cell where kb >= 16, else 1): a pairwise tree over i in one
-  // thread (zeros past I add nothing), then over q across the R lanes
-  const int R = kb >= 16 ? kb / 16 : 1;
-  const int I = kb / R;
-  for (int base = 0; base < cells * R; base += kThreads) {
-    const int id = base + (int)threadIdx.x;
-    const int c = id / R;
-    const int q = id - c * R;
-    double v[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      v[i] = i < I && c < cells ? part[c * S + i * R + q] : 0.0;
-#pragma unroll
-    for (int h = 1; h < 16; h <<= 1) {
-#pragma unroll
-      for (int i = 0; i + h < 16; i += 2 * h) v[i] += v[i + h];
+  // the block's sum: rounded and written (one block a column group), or
+  // kept for the second pass
+  block_sums(part, acc, kb, cols, k, j, [&](int c, double sum) {
+    const int t = c / cols;
+    const int fc = f0 + c - t * cols;
+    if (G == 1) {
+      if (fc < F && t < tc)
+        err[(size_t)fc * T + t0 + t] = __double2float_rn(sum);
+    } else {
+      ws[((size_t)blockIdx.y * G + r) * cells + c] = sum;
     }
-    double sum = v[0];
-    for (int m = 1; m < R; m <<= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, m);
-    if (q == 0 && c < cells) {
-      // the block's sum: rounded and written (one block a column group),
-      // or kept for the second pass
-      const int t = c / cols;
-      const int fc = f0 + c - t * cols;
-      if (G == 1) {
-        if (fc < F && t < tc)
-          err[(size_t)fc * T + t0 + t] = __double2float_rn(sum);
-      } else {
-        ws[((size_t)blockIdx.y * G + r) * cells + c] = sum;
-      }
-    }
-  }
+  });
 }
 
 // The second pass where a column group takes G > 1 blocks: one warp a
@@ -374,6 +422,137 @@ stump_scan_combine_kernel(const double* __restrict__ ws,
   const int t0 = tci * kChunk;
   if (lane == 0 && f < F && t0 + t < T)
     err[(size_t)f * T + t0 + t] = __double2float_rn(sum);
+}
+
+// The split route of stump_scan_batched (kernels/ops.py:scan_batched_split):
+// stump_scan_kernel's split of one slot's rows, for every slot of the
+// batch, with the G blocks of a column group summed inside the launch.
+// blockIdx.x = g * G + r: column group g (cols features of one chunk of 16
+// thresholds) and its block r, one thread-block cluster of G blocks a
+// column group; blockIdx.y = b * tgroups + tci, slot b's chunk tci of 16
+// thresholds.  So a slot's column groups come to the SMs together and
+// share x's sectors through L2.  Thread k * cols + j walks chunk r * kb + k
+// of feature g * cols + j.  A block's sums are stump_scan_kernel's tree;
+// then block r pushes its sum of cell c into block c % G's shared memory
+// (distributed shared memory), one cluster barrier, and each block adds
+// the G sums of its cells r, r + G, ... as a pairwise tree over 8 (zeros
+// past G), rounds once and writes.  No atomics, no global scratch.  A
+// thread reads its 16 thresholds once, with 4-byte loads: the 16-byte
+// route's registers cost more than its loads save (at (10, 43575, 54,
+// 16) it spilled and ran 0.1013 ms against 0.0937 on the H100).
+template <int kDepth>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+stump_scan_batched_kernel_split(const float* __restrict__ x,
+                                const float* __restrict__ y,
+                                const float* __restrict__ w,
+                                const float* __restrict__ thr,
+                                float* __restrict__ err, int N, int F, int T,
+                                int rows, int kb, int cols, int G,
+                                int tgroups) {
+  // the block's tree ([cell][chunk], as stump_scan_kernel's), then the
+  // cluster's sums of this block's cells, [source block][cell / G]
+  extern __shared__ double part[];
+  const int g = (int)blockIdx.x / G;
+  const int r = (int)blockIdx.x - g * G;       // its rank in the cluster
+  const int b = (int)blockIdx.y / tgroups;
+  const int tci = (int)blockIdx.y - b * tgroups;
+  const int f0 = g * cols;
+  const int t0 = tci * kChunk;
+  const int tc = min(kChunk, T - t0);
+  const int k = (int)threadIdx.x / cols;
+  const int j = (int)threadIdx.x - k * cols;
+  const int cells = cols * kChunk;
+  const int per = (cells + G - 1) / G;         // cells a block rounds
+  double* recv = part + cells * (kb >= 16 ? kb + 1 : kb);
+  if (G > 1)   // started: waited for before any remote store
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  double acc[kChunk];
+#pragma unroll
+  for (int t = 0; t < kChunk; ++t) acc[t] = 0.0;
+  const size_t slot = (size_t)b * N;               // first row of slot b
+  const int f = f0 + j;
+  const long long n0 = (long long)(r * kb + k) * rows;   // kb * cols = 256
+  if (f < F && n0 < N) {
+    float th[kChunk];
+    load_thresholds<false>(thr + ((size_t)b * F + f) * T + t0, tc, th);
+    walk<kDepth>(x + slot * F + f, F, y + slot, w + slot, (int)n0,
+                 (int)min((long long)N, n0 + rows), tc, th, acc);
+  }
+  float* err_b = err + (size_t)b * F * T + t0;
+  if (G == 1) {
+    block_sums(part, acc, kb, cols, k, j, [&](int c, double sum) {
+      const int t = c / cols;
+      const int fc = f0 + c - t * cols;
+      if (fc < F && t < tc)
+        err_b[(size_t)fc * T + t] = __double2float_rn(sum);
+    });
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  block_sums(part, acc, kb, cols, k, j, [&](int c, double sum) {
+    const int i = c / G;
+    *cluster.map_shared_rank(recv + r * per + i, c - i * G) = sum;
+  });
+  cluster.sync();
+  for (int i = (int)threadIdx.x; i < per; i += kThreads) {
+    const int c = r + i * G;
+    if (c >= cells) break;
+    double v[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      v[q] = q < G ? recv[q * per + i] : 0.0;
+#pragma unroll
+    for (int h = 1; h < kMaxCluster; h <<= 1) {
+#pragma unroll
+      for (int q = 0; q + h < kMaxCluster; q += 2 * h) v[q] += v[q + h];
+    }
+    const int t = c / cols;
+    const int fc = f0 + c - t * cols;
+    if (fc < F && t < tc)
+      err_b[(size_t)fc * T + t] = __double2float_rn(v[0]);
+  }
+}
+
+
+// The split route: `rows`, `chunks`, `blocks` and `cols` as
+// stump_scan_launch takes them, with blocks a column group one cluster (at
+// most kMaxCluster) and cols at most kSplitMaxCols; no scratch.
+int launch_split(const float* x, const float* y, const float* w,
+                 const float* thr, float* err, long long B, int N, int F,
+                 int T, int rows, int chunks, int blocks, int cols,
+                 cudaStream_t stream) {
+  if (rows < 1 || blocks < 1 || blocks > kMaxCluster || cols < 1 ||
+      cols > kSplitMaxCols || (cols & (cols - 1)) != 0 || chunks < blocks ||
+      chunks % blocks != 0 || (long long)rows * chunks < N)
+    return (int)cudaErrorInvalidValue;
+  const int kb = chunks / blocks;
+  if ((long long)kb * cols != kThreads) return (int)cudaErrorInvalidValue;
+  const int tgroups = (T + kChunk - 1) / kChunk;
+  const long long gx = (long long)((F + cols - 1) / cols) * blocks;
+  const long long gy = B * tgroups;
+  if (gx > INT_MAX || gy > kMaxGridY) return (int)cudaErrorInvalidConfiguration;
+  const int cells = cols * kChunk;
+  const size_t smem = ((size_t)cells * (kb >= 16 ? kb + 1 : kb) +
+                       (size_t)(cells + blocks - 1) / blocks * blocks) *
+                      sizeof(double);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)gx, (unsigned)gy, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = blocks > 1 ? 1 : 0;
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, stump_scan_batched_kernel_split<4>, x, y, w,
+                         thr, err, N, F, T, rows, kb, cols, blocks, tgroups);
+  if (e != cudaSuccess) cudaGetLastError();   // not left for the next call
+  return (int)e;
 }
 
 }  // namespace
@@ -433,37 +612,49 @@ extern "C" int stump_scan_launch(const void* x, const void* y, const void* w,
 }
 
 // x (B,N,F), y (B,N), w (B,N), thr (B,F,T) -> err (B,F,T), all f32 and
-// contiguous, on the current device; `vec` the 16-byte route (T % 4 == 0,
-// thr and err 16-byte aligned).  `threads` (a multiple of 32 up to 256) and
-// `depth` (4 rows a group of loads) fix the launch where a caller asks (0:
-// the launcher's own, 64 threads and a depth of 8 on the 16-byte route at
-// N >= 32, else 4); any other value is refused.  Every launch walks a
-// row's samples in order, so the bits do not depend on them.  Returns the
-// CUDA error of the launch (0 on success).
+// contiguous, on the current device; `vec` the row route's 16-byte loads
+// and stores (T % 4 == 0, thr and err 16-byte aligned; the split takes
+// 4-byte ones).  Two routes, one launch each:
+// - one thread a (b, f) row, rows walked in order, where chunks == 0 (and
+//   rows, blocks and cols 0).  `threads` (a multiple of 32 up to 256) and
+//   `depth` (4 rows a group of loads) fix the launch where a caller asks
+//   (0: the launcher's own, 64 threads and a depth of 8 on the 16-byte
+//   route at N >= 32, else 4); any other value is refused.  The bits are
+//   the plain version's.
+// - the split (threads and depth 0), as kernels/ops.py:scan_batched_split
+//   says: each slot's rows in `chunks` chunks of `rows` rows over `blocks`
+//   blocks (a cluster, at most 8), `cols` features a block (a power of two
+//   up to 64); ref.scan_batched_in_kernel_order gives its bits.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int stump_scan_batched_launch(const void* x, const void* y,
                                          const void* w, const void* thr,
                                          void* err, long long B, int N, int F,
                                          int T, int vec, int threads,
-                                         int depth, void* stream) {
+                                         int depth, int rows, int chunks,
+                                         int blocks, int cols, void* stream) {
   if (B < 0 || N < 0 || F < 0 || T < 0 || (vec && T % 4 != 0) ||
       threads < 0 || threads > kThreads || threads % 32 != 0 ||
-      (depth != 0 && depth != 4))
+      (depth != 0 && depth != 4) ||
+      (chunks ? threads || depth : rows || blocks || cols))
     return (int)cudaErrorInvalidValue;
-  const long long rows = B * F;
-  if (rows == 0 || T == 0) return 0;
-  const int bt = threads ? threads : kBatchThreads;
-  const long long blocks = (rows + bt - 1) / bt;
-  if (rows > (long long)UINT_MAX - kThreads || blocks > INT_MAX)
-    return (int)cudaErrorInvalidConfiguration;
+  const long long rows_bf = B * F;
+  if (rows_bf == 0 || T == 0) return 0;
   const float* xf = (const float*)x;
   const float* yf = (const float*)y;
   const float* wf = (const float*)w;
   const float* tf = (const float*)thr;
   float* ef = (float*)err;
+  if (chunks)
+    return launch_split(xf, yf, wf, tf, ef, B, N, F, T, rows, chunks, blocks,
+                        cols, (cudaStream_t)stream);
+  const int bt = threads ? threads : kBatchThreads;
+  const long long nblocks = (rows_bf + bt - 1) / bt;
+  if (rows_bf > (long long)UINT_MAX - kThreads || nblocks > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
   auto kernel = !vec ? stump_scan_batched_kernel<false, 4>
                 : N >= 32 && !depth ? stump_scan_batched_kernel<true, 8>
                                     : stump_scan_batched_kernel<true, 4>;
-  kernel<<<(unsigned)blocks, bt, 0, (cudaStream_t)stream>>>(
-      xf, yf, wf, tf, ef, (unsigned)rows, N, F, T);
+  kernel<<<(unsigned)nblocks, bt, 0, (cudaStream_t)stream>>>(
+      xf, yf, wf, tf, ef, (unsigned)rows_bf, N, F, T);
   return (int)cudaGetLastError();
 }

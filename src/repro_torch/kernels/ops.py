@@ -180,6 +180,56 @@ def scan_layout_split(N: int, F: int, T: int, sms: int,
                          chunks, int(blocks), cols)
 
 
+# csrc/stump_scan.cu's constants of stump_scan_batched: the row route's
+# block and the split route's most blocks a column group (one cluster)
+SCAN_BATCHED_THREADS = 64
+SCAN_MAX_CLUSTER = 8
+# the split's features a block: a warp reads one 32-byte sector of each
+# row of x
+SCAN_SPLIT_COLS = 8
+# the batched scan splits the rows where the row route's grid leaves SMs
+# idle and a row's walk takes at least this many rows
+SCAN_SPLIT_MIN_ROWS = 256
+# a block's tree and cluster barrier, in rows of its chunks' walk
+SCAN_SPLIT_TREE_ROWS = 16
+# the most (slot, chunk of 16 thresholds) pairs of the split's grid
+# (gridDim.y)
+SCAN_SPLIT_MAX_GRID_Y = 65535
+
+
+@functools.lru_cache(maxsize=1024)
+def scan_batched_split(B: int, N: int, F: int, T: int, sms: int
+                       ) -> Optional[ref.ScanSplit]:
+    """How :func:`stump_scan_batched` runs on a card of ``sms`` SMs (see
+    ``csrc/stump_scan.cu``): None, one thread a (b, f) row walking all N
+    rows, wherever its grid of ``SCAN_BATCHED_THREADS``-thread blocks
+    reaches every SM, N is short, or the split's grid would pass
+    ``SCAN_SPLIT_MAX_GRID_Y`` (slot, chunk of 16 thresholds) pairs; else
+    each slot's rows split over blocks of ``SCAN_SPLIT_COLS`` features,
+    256 // ``SCAN_SPLIT_COLS`` chunks a block, and the blocks a column group (one cluster, 1
+    to ``SCAN_MAX_CLUSTER``) whose grid ends first at two blocks an SM (its
+    waves times a chunk's rows and ``SCAN_SPLIT_TREE_ROWS``), the fewest
+    between equals: any size whose grid is one wave, past one wave only
+    powers of two (on the H100, 7 blocks a group at 70 groups, two waves,
+    ran 24% slower than 6 and 26% slower than 3, against the model's pick
+    of 7).  The result fixes the order of the sum
+    (:func:`ref.scan_batched_in_kernel_order`)."""
+    if (-(-B * F // SCAN_BATCHED_THREADS) >= sms or N < SCAN_SPLIT_MIN_ROWS
+            or B * -(-T // SCAN_CHUNK) > SCAN_SPLIT_MAX_GRID_Y):
+        return None
+    kb = SCAN_THREADS // SCAN_SPLIT_COLS
+    groups = B * -(-F // SCAN_SPLIT_COLS) * -(-T // SCAN_CHUNK)
+
+    def cost(G: int) -> int:
+        waves = -(-groups * G // (2 * sms))
+        return waves * (-(-N // (kb * G)) + SCAN_SPLIT_TREE_ROWS)
+
+    sizes = [G for G in range(1, SCAN_MAX_CLUSTER + 1)
+             if groups * G <= 2 * sms or G & (G - 1) == 0]
+    G = min(sizes, key=cost)
+    return ref.ScanSplit(-(-N // (kb * G)), kb * G, G, SCAN_SPLIT_COLS)
+
+
 def scan_workspace(F: int, T: int, split: ref.ScanSplit) -> int:
     """Doubles of scratch a split takes: the block sums of its second pass
     (none where a column group is one block)."""
@@ -261,11 +311,17 @@ def stump_scan_batched(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                        ) -> torch.Tensor:
     """Per-slot weighted stump errors for a stacked fleet batch: x (B,N,F),
     y/w (B,N), thresholds (B,F,T) -> (B,F,T) f32 (see
-    :func:`ref.stump_scan_batched_ref`, whose bits the kernel gives).  Any
-    B is launched as it is: the kernel's grid is flat, so no slot padding
-    is needed.  Knobs: ``threads`` a block (a multiple of 32 up to 256)
-    and ``depth``, the rows of a group of loads (4 in place of the
-    16-byte route's own 8)."""
+    :func:`ref.stump_scan_batched_ref`).  Any B is launched as it is: no
+    slot padding is needed.  On the card :func:`scan_batched_split` picks
+    the route from the shape and the SM count: one thread a (b, f) row
+    sums the rows in order, the plain version's bits; the split (where
+    B·F leaves SMs idle and N is long) sums in
+    :func:`ref.scan_batched_in_kernel_order`'s order, in f64, which gives
+    the plain version's bits wherever every order does (the rule of
+    :func:`ref.stump_scan_ref`).  Knobs: ``threads`` a block (a multiple
+    of 32 up to 256) and ``depth``, the rows of a group of loads (4 in
+    place of the 16-byte route's own 8), name a launch of the row route,
+    which a call that gives either takes."""
     return dispatch.dispatch("stump_scan_batched", (x, y, w, thresholds),
                              {"block_n": block_n, **knobs}, policy=policy,
                              backend=backend)
@@ -288,13 +344,16 @@ def _stump_scan_batched_cuda(x: torch.Tensor, y: torch.Tensor,
     err = torch.empty_like(thr)
     if B * F * T == 0:
         return err
+    split = None
+    if threads is None and depth is None:
+        split = scan_batched_split(B, N, F, T, _sms(x.get_device()))
     from repro_torch.kernels.build import load
     with _on_device(x):
         _launch("stump_scan_batched", load().stump_scan_batched_launch,
                 x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
                 err.data_ptr(), B, N, F, T, int(scan_vec(T, thr, err)),
                 _knob("threads", threads, 0), _knob("depth", depth, 0),
-                _stream(x))
+                *(split or (0, 0, 0, 0)), _stream(x))
     return err
 
 

@@ -49,8 +49,12 @@ def stump_scan_batched_ref(x: torch.Tensor, y: torch.Tensor,
     contributes nothing, so ragged client shards stack safely.
 
     The sum runs over n = 0..N-1 in order, in f64, and is rounded once to
-    f32: the rule of :func:`stump_scan_ref`, and the order the CUDA kernel
-    (``csrc/stump_scan.cu``) sums in, so the two agree bit for bit.
+    f32: the rule of :func:`stump_scan_ref`.  The CUDA kernel
+    (``csrc/stump_scan.cu``) has two routes (``ops.scan_batched_split``
+    picks one from the shape): one thread a row sums in this order, so
+    the two agree bit for bit; the split sums in
+    :func:`scan_batched_in_kernel_order`'s order, which gives these bits
+    wherever the weights span less than 2**29 / N (every order does).
     A loop over the rows keeps the working set at (B,F,T) whatever N is.
     """
     x, y, thresholds = x.to(F32), y.to(F32), thresholds.to(F32)
@@ -76,21 +80,16 @@ class ScanSplit(NamedTuple):
     cols: int
 
 
-def scan_in_kernel_order(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                         thresholds: torch.Tensor, split: ScanSplit
-                         ) -> torch.Tensor:
-    """``csrc/stump_scan.cu``'s sum for one slot, emulated on the CPU:
-    x (N,F), y/w (N,), thresholds (F,T), split -> (F,T) f32.  Used by the
-    tests only.
-
-    Chunk c holds rows [c * rows, (c + 1) * rows) that lie below N (a
-    chunk past N is empty); its sum runs over them in order from zero.
-    A block's kb = chunks // blocks chunks form a grid of kb / R rows of
-    R (chunk i * R + q, R = kb // 16 where kb >= 16, else 1); the block's
-    sum is a pairwise tree over i, ((v0 + v1) + (v2 + v3)) + ..., then
-    over q.  Where there are several blocks, their sums are padded with
-    zeros to 32 * P (P the least power of two that holds them) and added
-    as a pairwise tree.  All in f64, rounded once to f32."""
+def _scan_block_sums(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                     thresholds: torch.Tensor, split: ScanSplit
+                     ) -> torch.Tensor:
+    """One slot's block sums in ``csrc/stump_scan.cu``'s order, f64
+    (blocks, F, T): chunk c holds rows [c * rows, (c + 1) * rows) that lie
+    below N (a chunk past N is empty); its sum runs over them in order from
+    zero.  A block's kb = chunks // blocks chunks form a grid of kb / R rows
+    of R (chunk i * R + q, R = kb // 16 where kb >= 16, else 1); the
+    block's sum is a pairwise tree over i, ((v0 + v1) + (v2 + v3)) + ...,
+    then over q."""
     x, thresholds = x.to(F32), thresholds.to(F32)
     y, w = y.to(F32), w.to(F32).double()
     N, F = x.shape
@@ -113,17 +112,71 @@ def scan_in_kernel_order(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         while grid.shape[dim] > 1:
             lo, hi = grid.unflatten(dim, (-1, 2)).unbind(dim + 1)
             grid = lo + hi
-    block_sums = grid[:, 0, 0]
+    return grid[:, 0, 0]
+
+
+def _pairwise(sums: torch.Tensor, leaves: int) -> torch.Tensor:
+    """A pairwise tree over ``sums``' first dimension padded with zeros to
+    ``leaves`` (a power of two at least as long)."""
+    tree = torch.cat([sums, sums.new_zeros((leaves - len(sums),
+                                            *sums.shape[1:]))])
+    while tree.shape[0] > 1:
+        tree = tree[0::2] + tree[1::2]
+    return tree[0]
+
+
+def scan_in_kernel_order(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                         thresholds: torch.Tensor, split: ScanSplit
+                         ) -> torch.Tensor:
+    """``csrc/stump_scan.cu``'s sum for one slot, emulated on the CPU:
+    x (N,F), y/w (N,), thresholds (F,T), split -> (F,T) f32.  Used by the
+    tests only.
+
+    The blocks' sums as :func:`_scan_block_sums` takes them; where there
+    are several blocks, their sums are padded with zeros to 32 * P (P the
+    least power of two that holds them) and added as a pairwise tree.  All
+    in f64, rounded once to f32."""
+    block_sums = _scan_block_sums(x, y, w, thresholds, split)
+    blocks = split.blocks
     if blocks == 1:
         return block_sums[0].to(F32)
     leaves = 32                          # the second pass: 32 lanes of P
     while leaves < blocks:
         leaves *= 2
-    tree = torch.cat([block_sums,
-                      block_sums.new_zeros((leaves - blocks, F, T))])
-    while tree.shape[0] > 1:
-        tree = tree[0::2] + tree[1::2]
-    return tree[0].to(F32)
+    return _pairwise(block_sums, leaves).to(F32)
+
+
+SCAN_CLUSTER_LEAVES = 8     # the split route's tree over a cluster's blocks
+
+
+def scan_batched_in_kernel_order(x: torch.Tensor, y: torch.Tensor,
+                                 w: torch.Tensor, thresholds: torch.Tensor,
+                                 split) -> torch.Tensor:
+    """``csrc/stump_scan.cu``'s batched sum, emulated on the CPU: x (B,N,F),
+    y/w (B,N), thresholds (B,F,T) and the route
+    (``ops.scan_batched_split``) -> (B,F,T) f32.  Used by the tests,
+    ``chip_smoke.py`` and ``tools/`` only.
+
+    ``split`` None, the one-thread-a-row route: the rows of each slot in
+    order (:func:`stump_scan_batched_ref`).  A :class:`ScanSplit`, the split
+    route: each slot's block sums as :func:`scan_in_kernel_order` takes
+    them (:func:`_scan_block_sums`), and its ``blocks`` block sums (one
+    cluster, at most 8) padded with zeros to 8 and added as a pairwise
+    tree (one block: its sum as it is).  Zeros add nothing, so this is
+    :func:`scan_in_kernel_order`'s sum of each slot.  All in f64, rounded
+    once to f32."""
+    if split is None:
+        return stump_scan_batched_ref(x, y, w, thresholds)
+    if x.shape[0] == 0:
+        return torch.zeros(thresholds.shape, dtype=F32)
+    if not 1 <= split.blocks <= SCAN_CLUSTER_LEAVES:
+        raise ValueError(f"a split route of {split.blocks} blocks a column "
+                         f"group: the cluster holds 1 to "
+                         f"{SCAN_CLUSTER_LEAVES}")
+    return torch.stack([
+        _pairwise(_scan_block_sums(x[b], y[b], w[b], thresholds[b], split),
+                  SCAN_CLUSTER_LEAVES).to(F32)
+        for b in range(x.shape[0])])
 
 
 def ensemble_vote_ref(margins: torch.Tensor, alphas: torch.Tensor

@@ -20,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import dispatch, ops, ref  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -316,7 +316,10 @@ def test_scan_route_takes_16_byte_loads_only_where_aligned(T, offset, want):
 
 @pytest.mark.parametrize("name,c_value", [
     ("SCAN_THREADS", "kThreads"), ("SCAN_CHUNK", "kChunk"),
-    ("SCAN_MAX_BLOCKS", "32 * kMaxPerLane")])
+    ("SCAN_MAX_BLOCKS", "32 * kMaxPerLane"),
+    ("SCAN_BATCHED_THREADS", "kBatchThreads"),
+    ("SCAN_MAX_CLUSTER", "kMaxCluster"),
+    ("SCAN_SPLIT_MAX_GRID_Y", "kMaxGridY")])
 def test_scan_constants_match_the_cuda_source(name, c_value):
     """The split chooser's constants are csrc/stump_scan.cu's: a split
     made from other ones would be refused by the launcher."""
@@ -324,6 +327,189 @@ def test_scan_constants_match_the_cuda_source(name, c_value):
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert getattr(ops, name) == eval(c_value, {}, consts)
+    assert ref.SCAN_CLUSTER_LEAVES == consts["kMaxCluster"]
+
+
+# the batched scan's route: (B, N, F, T) -> the split taken on 132 SMs
+BATCHED_ROUTES = [((10, 43575, 54, 16), True),     # fed_mesh's ten shards
+                  ((1, 24000, 64, 16), True),
+                  ((100000, 4, 48, 16), False),    # a fleet wave
+                  ((4096, 333, 64, 16), False),    # large shards
+                  ((8, 37, 48, 16), False),        # few rows a slot
+                  ((8000, 300, 1, 200), False)]    # past gridDim.y
+BATCHED_SHAPES = [shape for shape, _ in BATCHED_ROUTES] + [
+    (10, 43575, 54, 40), (3, 1000, 13, 21), (100, 300, 54, 16),
+    (131, 500, 64, 16), (2, 256, 1, 1), (5041, 300, 1, 208),
+    (5042, 300, 1, 208)]
+
+
+@pytest.mark.parametrize("shape,split", BATCHED_ROUTES)
+def test_scan_batched_split_picks_the_route_from_the_shape(shape, split):
+    """One thread a row wherever its blocks reach every SM (a fleet wave,
+    large shards), a slot's rows are few, or the split's grid would pass
+    65,535 (slot, chunk of 16 thresholds) pairs; the split where B·F
+    leaves SMs idle and N is long."""
+    assert (ops.scan_batched_split(*shape, 132) is not None) is split
+
+
+@pytest.mark.parametrize("sms", SCAN_SMS)
+@pytest.mark.parametrize("shape", BATCHED_SHAPES)
+def test_scan_batched_split_is_a_grid_the_kernel_takes(shape, sms):
+    """What the launcher's split route accepts: blocks of 8 features, 256
+    threads a block in whole chunks, one cluster of 1 to 8 blocks a column
+    group, every row in a chunk, at most 65,535 (slot, chunk of 16
+    thresholds) pairs; and the cost model's least among the cluster sizes
+    it may take."""
+    B, N, F, T = shape
+    picked = ops.scan_batched_split(B, N, F, T, sms)
+    pairs = B * -(-T // ops.SCAN_CHUNK)
+    if picked is None:
+        assert -(-B * F // ops.SCAN_BATCHED_THREADS) >= sms \
+            or N < ops.SCAN_SPLIT_MIN_ROWS or pairs > 65535
+        return
+    s = picked
+    assert s.cols == ops.SCAN_SPLIT_COLS == 8
+    assert 1 <= s.blocks <= ops.SCAN_MAX_CLUSTER
+    assert s.chunks % s.blocks == 0
+    assert (s.chunks // s.blocks) * s.cols == ops.SCAN_THREADS
+    assert s.rows >= 1 and s.rows * s.chunks >= N
+    assert (s.rows - 1) * s.chunks < N                 # no row to spare
+    assert -(-F // s.cols) * s.blocks < 2 ** 31 and pairs <= 65535
+    kb = ops.SCAN_THREADS // 8
+    groups = B * -(-F // 8) * -(-T // ops.SCAN_CHUNK)
+
+    def cost(G):
+        return -(-groups * G // (2 * sms)) * (
+            -(-N // (kb * G)) + ops.SCAN_SPLIT_TREE_ROWS)
+    sizes = [G for G in range(1, 9) if groups * G <= 2 * sms
+             or G in (1, 2, 4, 8)]
+    assert s.blocks in sizes
+    assert cost(s.blocks) == min(cost(G) for G in sizes)
+    assert s.blocks == min(G for G in sizes if cost(G) == cost(s.blocks))
+
+
+def batched_split_cases():
+    cases = {(shape, ops.scan_batched_split(*shape, sms))
+             for shape in [(3, 1000, 13, 21), (10, 2000, 54, 16),
+                           (2, 517, 5, 3)] for sms in SCAN_SMS}
+    return sorted((c for c in cases if c[1] is not None),
+                  key=lambda c: (c[0], tuple(c[1]))) + [
+        ((3, 1000, 13, 21), ref.ScanSplit(1000, 1, 1, 256)),  # in order
+        ((3, 1000, 13, 21), ref.ScanSplit(5, 256, 8, 8)),     # 56 past N
+        ((3, 1000, 13, 21), ref.ScanSplit(2, 512, 2, 1)),
+        ((2, 517, 5, 3), ref.ScanSplit(9, 64, 4, 16)),
+        ((2, 517, 5, 3), ref.ScanSplit(1, 768, 3, 1))]
+
+
+@pytest.mark.parametrize("shape,split", batched_split_cases())
+def test_scan_batched_in_kernel_order_matches_plain(shape, split):
+    """The split route's order, emulated: bit-equal to the plain version
+    on the fleet's test batches (zero-weight rows and a zero-weight slot;
+    these sums are exact in any order), and so to the row route's."""
+    args = t(*batched_scan_case(sum(shape), *shape))
+    want = ref.stump_scan_batched_ref(*args)
+    assert torch.equal(ref.scan_batched_in_kernel_order(*args, split), want)
+    assert torch.equal(ref.scan_batched_in_kernel_order(*args, None), want)
+
+
+def wide_weights(rng, shape):
+    """f32 weights of full mantissas spanning 2**40: f64 sums of them are
+    not exact, so their order shows."""
+    w = (1.0 + rng.rand(*shape)) * 2.0 ** -rng.randint(0, 41, size=shape)
+    return w.astype(np.float32)
+
+
+@pytest.mark.parametrize("blocks", range(1, 9))
+def test_scan_batched_in_kernel_order_is_the_single_scan_per_slot(blocks):
+    """With one slot the batched order is the single scan's wherever the
+    combine is the same, which it is at every cluster size: a pairwise
+    tree padded with zeros to 8 leaves is the second pass's tree padded
+    to 32."""
+    x, y, _, thr = batched_scan_case(blocks, 1, 700, 9, 21)
+    w = wide_weights(np.random.RandomState(blocks), (1, 700))
+    x, y, w, thr = t(x, y, w, thr)
+    split = ref.ScanSplit(-(-700 // (32 * blocks)), 32 * blocks, blocks, 8)
+    assert torch.equal(ref.scan_batched_in_kernel_order(x, y, w, thr, split),
+                       ref.scan_in_kernel_order(x[0], y[0], w[0], thr[0],
+                                                split)[None])
+
+
+def ordered_oracle(x, y, w, thr, split):
+    """err[b,f,t] in numpy f64, summed in the split route's order one
+    addition at a time: each chunk's rows in order from zero, a block's
+    chunks as a grid of I rows of R, a pairwise tree over i and then over
+    q, the cluster's block sums a pairwise tree over 8 leaves (zeros past
+    the blocks); rounded once to f32."""
+    rows, chunks, blocks, _ = split
+    B, N, F = x.shape
+    kb = chunks // blocks
+    R = kb // 16 if kb >= 16 else 1
+
+    def tree(vals):
+        while len(vals) > 1:
+            vals = [vals[i] + vals[i + 1] for i in range(0, len(vals), 2)]
+        return vals[0]
+
+    out = np.empty(thr.shape, np.float32)
+    for b in range(B):
+        above = x[b][:, :, None] > thr[b][None]
+        miss = np.where(above, (y[b] != 1.0)[:, None, None],
+                        (y[b] != -1.0)[:, None, None])
+        terms = np.where(miss, w[b].astype(np.float64)[:, None, None], 0.0)
+        sums = []
+        for c in range(chunks):
+            acc = np.zeros(thr.shape[1:])
+            for n in range(c * rows, min(N, (c + 1) * rows)):
+                acc = acc + terms[n]
+            sums.append(acc)
+        block_sums = []
+        for r in range(blocks):
+            mine = sums[r * kb:(r + 1) * kb]
+            block_sums.append(tree([tree([mine[i * R + q]
+                                          for i in range(kb // R)])
+                                    for q in range(R)]))
+        zeros = [np.zeros(thr.shape[1:])] * (8 - blocks)
+        out[b] = tree(block_sums + zeros).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("shape,split", [
+    ((2, 600, 9, 21), ref.ScanSplit(3, 256, 8, 8)),
+    ((2, 600, 9, 21), ref.ScanSplit(7, 96, 3, 8)),
+    ((2, 600, 9, 21), ref.ScanSplit(3, 256, 1, 1)),
+    ((1, 600, 70, 16), ref.ScanSplit(10, 64, 4, 16)),
+    ((3, 300, 5, 3), ref.ScanSplit(1, 320, 5, 4))])
+def test_scan_batched_in_kernel_order_is_its_order_at_wide_weights(shape,
+                                                                   split):
+    """Weights spanning 2**40, labels 0, 0.5 and NaN among the +-1: the
+    emulation equals the oracle summed in the split route's order."""
+    B, N, F, T = shape
+    x, y, _, thr = batched_scan_case(N + F, B, N, F, T)
+    y[:, ::7], y[:, 3::11], y[:, 5::13] = 0.0, 0.5, np.nan
+    w = wide_weights(np.random.RandomState(N), (B, N))
+    got = ref.scan_batched_in_kernel_order(*t(x, y, w, thr), split)
+    assert np.array_equal(got.numpy(), ordered_oracle(x, y, w, thr, split))
+
+
+def order_case():
+    """One slot, one stump that misses every row, weights 1, 2**-24,
+    2**-53, 2**-53: in order each 2**-53 is half of f64's last place at
+    1 + 2**-24 and is lost (a tie, to even), and 1 + 2**-24 rounds to 1 in
+    f32 (a tie, to even); a chunk a row in one block adds the two 2**-53
+    first, and 1 + 2**-24 + 2**-52 rounds up to 1 + 2**-23."""
+    x = torch.zeros((1, 4, 1))
+    y = -torch.ones((1, 4))                         # x > -1: every row misses
+    thr = torch.full((1, 1, 1), -1.0)
+    w = torch.tensor([[1.0, 2.0 ** -24, 2.0 ** -53, 2.0 ** -53]])
+    return x, y, w, thr
+
+
+def test_scan_batched_in_kernel_order_is_its_own_order():
+    args = order_case()
+    split = ref.ScanSplit(1, 4, 1, 64)
+    assert ref.scan_batched_in_kernel_order(*args, None).item() == 1.0
+    assert ref.scan_batched_in_kernel_order(*args, split).item() == \
+        1.0 + 2.0 ** -23
 
 
 @pytest.mark.cuda
@@ -442,6 +628,189 @@ def test_stump_scan_batched_kernel_routes_on_card(card, B, N, F, T, offset,
     got = ops.stump_scan_batched(*args, thr_card)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref.stump_scan_batched_ref(x, y, w, thr))
+
+
+# short ``spin_kernel`` markers that open a traced session
+LEAD_MARKERS = 8
+
+
+def lead_markers():
+    """``LEAD_MARKERS`` short kernels to open a traced session: in a
+    process that ran earlier sessions the profiler drops the records of a
+    session's first kernels, by count and not by time (on the H100 one or
+    two in a row; a marker a millisecond long went with the kernel after
+    it), and the drop then falls on markers."""
+    for _ in range(LEAD_MARKERS):
+        torch.cuda._sleep(1000)
+
+
+def traced_batched_scan(call):
+    """``call()`` on the card, traced: its result, after asserting one
+    device operation, a kernel named ``stump_scan_batched_kernel``.
+    ``spin_kernel`` markers come before (:func:`lead_markers`) and after
+    the call inside the trace, and are left out of the count."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_markers()
+        got = call()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    traced = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [n for n in traced if "spin_kernel" not in n]
+    assert len(names) == 1 and "stump_scan_batched_kernel" in names[0], \
+        traced
+    return got
+
+
+def one_batched_scan_on_card(args, **knobs):
+    """One ``stump_scan_batched`` call on the card, traced
+    (:func:`traced_batched_scan`), one launch counted."""
+    before = ops.LAUNCHES["stump_scan_batched"]
+    got = traced_batched_scan(lambda: ops.stump_scan_batched(*args, **knobs))
+    assert ops.LAUNCHES["stump_scan_batched"] == before + 1
+    return got
+
+
+def launch_batched_split(args, split, threads=0, depth=0):
+    """``stump_scan_batched_launch`` called with a split built by hand
+    (and the row route's ``threads`` and ``depth``): its errors, or a
+    RuntimeError with the launcher's CUDA error."""
+    from repro_torch.kernels.build import load
+    x, y, w, thr = args
+    B, N, F = x.shape
+    T = thr.shape[2]
+    err = torch.empty_like(thr)
+    rc = load().stump_scan_batched_launch(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), thr.data_ptr(),
+        err.data_ptr(), B, N, F, T, int(ops.scan_vec(T, thr, err)), threads,
+        depth, *split, ops._stream(x))
+    if rc != 0:
+        raise RuntimeError(f"stump_scan_batched_launch: CUDA error {rc}")
+    return err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,data", [
+    ((10, 43575, 54, 16), "plain"),     # fed_mesh's ten covtype shards
+    ((10, 43575, 54, 16), "wide"),
+    ((3, 1000, 13, 21), "plain"),       # T 21, F not a multiple of 8
+    ((5, 777, 54, 16), "plain"),        # N not a multiple of a chunk
+    ((3, 1000, 13, 21), "labels"),
+    ((3, 1000, 13, 21), "wide"),
+    ((1, 24000, 64, 16), "wide")])
+def test_stump_scan_batched_split_is_the_emulated_order_on_card(card, shape,
+                                                                 data):
+    """Where B·F leaves SMs idle and N is long the split route runs, one
+    launch a call, and gives the bits of its order's emulation: on the
+    fleet's test batches (a zero-weight slot, zero-weight rows), with
+    labels 0, 0.5 and NaN, and with weights spanning 2**40; where the sums
+    are exact, the plain version's bits too (held on the CPU).  The
+    trace's one kernel a call is held by
+    :func:`test_stump_scan_batched_split_is_one_traced_kernel_on_card`,
+    at smaller shapes."""
+    B, N, F, T = shape
+    x, y, w, thr = batched_scan_case(B + N + F + T, B, N, F, T)
+    if data == "labels":
+        y[:, ::7], y[:, 3::11], y[:, 5::13] = 0.0, 0.5, np.nan
+    if data == "wide":
+        w = wide_weights(np.random.RandomState(N), (B, N))
+    host = t(x, y, w, thr)
+    args = [a.to(card) for a in host]
+    split = ops.scan_batched_split(B, N, F, T, ops._sms(args[0].get_device()))
+    assert split is not None
+    before = ops.LAUNCHES["stump_scan_batched"]
+    got = ops.stump_scan_batched(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["stump_scan_batched"] == before + 1
+    assert torch.equal(got.cpu(), ref.scan_batched_in_kernel_order(*host,
+                                                                  split))
+    if data != "wide":
+        assert torch.equal(got.cpu(), ref.stump_scan_batched_ref(*host))
+    assert torch.equal(ops.stump_scan_batched(*args), got)   # run to run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 1000, 13, 21), (5, 777, 54, 16)])
+def test_stump_scan_batched_split_is_one_traced_kernel_on_card(card, shape):
+    """Through the wrapper, where the picker takes the split: one launch
+    counted and one traced kernel a call, with the emulation's bits."""
+    B, N, F, T = shape
+    host = t(*batched_scan_case(B + N + F + T, B, N, F, T))
+    args = [a.to(card) for a in host]
+    split = ops.scan_batched_split(B, N, F, T, ops._sms(args[0].get_device()))
+    assert split is not None
+    got = one_batched_scan_on_card(args)
+    assert torch.equal(got.cpu(), ref.scan_batched_in_kernel_order(*host,
+                                                                  split))
+
+
+def hand_split(N, cols, blocks):
+    """256 // cols chunks a block over ``blocks`` blocks, rows enough to
+    cover N."""
+    chunks = ops.SCAN_THREADS // cols * blocks
+    return ref.ScanSplit(-(-N // chunks), chunks, blocks, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols,blocks", [
+    (8, g) for g in range(1, 9)] + [
+    (c, 2) for c in (1, 2, 4, 16, 32, 64)] + [(64, 3), (1, 8)])
+def test_stump_scan_batched_launcher_splits_give_their_order_on_card(
+        card, cols, blocks):
+    """Every split the launcher takes, built by hand (blocks of 1 to 64
+    features, 1 to 8 blocks a cluster), at weights spanning 2**40 and at a
+    shape the picker leaves to the row route: one kernel, the emulation's
+    bits."""
+    B, N, F, T = 6, 200, 13, 21
+    x, y, _, thr = batched_scan_case(7, B, N, F, T)
+    w = wide_weights(np.random.RandomState(7), (B, N))
+    host = t(x, y, w, thr)
+    args = [a.to(card) for a in host]
+    split = hand_split(N, cols, blocks)
+    got = traced_batched_scan(lambda: launch_batched_split(args, split))
+    assert torch.equal(got.cpu(), ref.scan_batched_in_kernel_order(*host,
+                                                                  split))
+
+
+@pytest.mark.cuda
+def test_stump_scan_batched_split_follows_its_own_order_on_card(card):
+    """Where the order shows in f32 (see :func:`order_case`), the split
+    gives its emulation's bits and the row route the plain version's."""
+    args = [a.to(card) for a in order_case()]
+    split = hand_split(4, 64, 1)
+    assert split == ref.ScanSplit(1, 4, 1, 64)
+    got = traced_batched_scan(lambda: launch_batched_split(args, split))
+    assert got.item() == 1.0 + 2.0 ** -23
+    assert ops.stump_scan_batched(*args).item() == 1.0        # row route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [{"threads": 128}, {"depth": 4}])
+def test_stump_scan_batched_launcher_refuses_both_routes_on_card(card,
+                                                                 knobs):
+    """A row route's knob with a split: the launcher refuses the call."""
+    args = [a.to(card) for a in t(*batched_scan_case(3, 3, 1000, 13, 21))]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch_batched_split(args, hand_split(1000, 8, 2), **knobs)
+
+
+@pytest.mark.cuda
+def test_stump_scan_batched_launcher_refuses_a_grid_past_its_limit_on_card(
+        card):
+    """A split of more than 65,535 (slot, chunk of 16 thresholds) pairs is
+    refused by the launcher; the picker sends that shape to the row route,
+    which runs it."""
+    B, N, F, T = 8000, 300, 1, 200
+    args = [a.to(card) for a in t(*batched_scan_case(5, B, N, F, T))]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch_batched_split(args, hand_split(N, 8, 2))
+    assert ops.scan_batched_split(B, N, F, T,
+                                  ops._sms(args[0].get_device())) is None
+    got = ops.stump_scan_batched(*args).cpu()
+    some = [0, 1, B // 2, B - 1]                     # slots are independent
+    assert torch.equal(got[some], ref.stump_scan_batched_ref(
+        *[a.cpu()[some] for a in args]))
 
 
 @pytest.mark.cuda
@@ -1000,7 +1369,9 @@ def test_dist_update_routes_not_taken_give_their_order_on_card(card, N):
 @pytest.mark.parametrize("N", [8192, 4_194_304])
 def test_dist_update_is_one_device_operation_on_card(card, N):
     """A call's whole device work, traced: one kernel, no fill and no
-    copy of alpha to the card, with alpha a number or a CUDA tensor."""
+    copy of alpha to the card, with alpha a number or a CUDA tensor.
+    ``spin_kernel`` markers before and after the calls take the records
+    the profiler now and then drops (see :func:`traced_batched_scan`)."""
     from torch.profiler import ProfilerActivity, profile
     D, y, h = dist_on_card(card, N)
     a = torch.tensor(0.7, device=card)
@@ -1008,13 +1379,16 @@ def test_dist_update_is_one_device_operation_on_card(card, N):
     torch.cuda.synchronize()
     for alpha in (0.7, a):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_markers()
             for _ in range(5):
                 ops.dist_update(alpha, D, y, h)
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced = [e.name[:64] for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [n for n in traced if "spin_kernel" not in n]
         assert len(names) == 5 and all("dist_update_kernel" in n
-                                       for n in names), names
+                                       for n in names), traced
 
 
 @pytest.mark.cuda
