@@ -6,7 +6,11 @@ one ``BENCHMARK.json`` names, the traffic mix is ``traffic/<name>.json``,
 the check's limits are ``limits/<workload>.json``, each end-to-end metric
 is ``end_to_end/<name>.py`` and each per-layer metric ``metrics/<name>.py``,
 each with a ``read(ctx)`` function (see ``Context``) that returns the
-metric's value, or None where the run has nothing for it to read.
+metric's value, or None where the run has nothing for it to read.  A
+metric named ``<base>.<variant>`` without a file of its own is read by
+``<base>.py``: the same quantity, split by the end-to-end metric it moves.
+A cell's per-layer metrics are those that list it under ``workloads``, and
+those without the key that move one of the cell's end-to-end metrics.
 
 The window drives ``repro_torch.core.fed_mesh``'s step over whole
 federations back to back, each from a fresh ``init_state``, with every
@@ -47,7 +51,11 @@ def cell(spec: Dict, workload: str, bench_dir: Path = HERE) -> Dict:
     conf = {c["name"]: c for c in spec["configs"]}[wl["config"]]
     mine = lambda ms: [m for m in ms
                        if workload in m.get("workloads", [workload])]
-    per_layer, end_to_end = mine(spec["per_layer"]), mine(spec["end_to_end"])
+    end_to_end = mine(spec["end_to_end"])
+    rates = {m["name"] for m in end_to_end}
+    per_layer = [m for m in spec["per_layer"]
+                 if (workload in m["workloads"] if "workloads" in m
+                     else m["moves"] in rates)]
     return {"workload": wl,
             "config": load_json(bench_dir.parent / conf["file"]),
             "traffic": load_json(bench_dir / "traffic" /
@@ -62,8 +70,11 @@ def cell(spec: Dict, workload: str, bench_dir: Path = HERE) -> Dict:
 
 
 def reader(kind: str, name: str, bench_dir: Path = HERE) -> Callable:
-    """``read`` of ``<kind>/<name>.py``."""
+    """``read`` of ``<kind>/<name>.py``, or of ``<kind>/<base>.py`` for a
+    ``<base>.<variant>`` without a file of its own."""
     path = bench_dir / kind / f"{name}.py"
+    if not path.is_file() and "." in name:
+        path = bench_dir / kind / f"{name.split('.')[0]}.py"
     spec = importlib.util.spec_from_file_location(
         f"perfbench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
@@ -124,22 +135,28 @@ def read_trace(prof) -> Dict:
     union of every device operation's interval; a user annotation's range
     on the device is no operation), and the ten largest device operations
     and idle gaps (each gap named by the innermost host operation running
-    at its middle)."""
+    at its middle).  Reads the profiler's raw events, with the names and
+    the filter that ``prof.events()`` gives them, without building its
+    event tree (which takes tens of seconds for four federations)."""
     import torch
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
     cuda = torch.autograd.DeviceType.CUDA
-    dev, host = [], []
-    for e in prof.events():
-        if e.device_type != cuda:
-            host.append(e)
-        elif not getattr(e, "is_user_annotation", False):
-            dev.append(e)
     ops: Dict[str, List[float]] = {}
-    spans = []
-    for e in dev:
-        o = ops.setdefault(e.name, [0.0, 0])
-        o[0] += e.time_range.elapsed_us() * 1e-6
-        o[1] += 1
-        spans.append((e.time_range.start, e.time_range.end))
+    spans, host = [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        name = _rewrite_name(name, with_wildcard=True)
+        a, b = e.start_ns(), e.end_ns()
+        if e.device_type() != cuda:
+            host.append((a, b, name))
+        elif not e.is_user_annotation():
+            o = ops.setdefault(name, [0.0, 0])
+            o[0] += (b - a) * 1e-9
+            o[1] += 1
+            spans.append((a, b))
     spans.sort()
     busy, gaps, cur = 0.0, [], None
     for a, b in spans:
@@ -152,20 +169,20 @@ def read_trace(prof) -> Dict:
             cur[1] = max(cur[1], b)
     if cur is not None:
         busy += cur[1] - cur[0]
-    host.sort(key=lambda e: e.time_range.start)
-    starts = [e.time_range.start for e in host]
+    host.sort(key=lambda e: (e[0], -e[1]))     # an outer event first
+    starts = [e[0] for e in host]
     idle: Dict[str, float] = {}
     for a, b in gaps:
         mid, name = (a + b) / 2, "python"
         i = bisect_right(starts, mid)
         for e in reversed(host[max(0, i - 16):i]):
-            if e.time_range.end >= mid:
-                name = e.name
+            if e[1] >= mid:
+                name = e[2]
                 break
-        idle[name] = idle.get(name, 0.0) + (b - a) * 1e-6
+        idle[name] = idle.get(name, 0.0) + (b - a) * 1e-9
     top = lambda d: [[k, v] for k, v in
                      sorted(d.items(), key=lambda kv: -kv[1])[:10]]
-    return {"busy_s": busy * 1e-6, "device_ops": ops,
+    return {"busy_s": busy * 1e-9, "device_ops": ops,
             "breakdown": {"device_ops": top({k: v[0]
                                              for k, v in ops.items()}),
                           "idle_gaps": top(idle)}}
@@ -191,10 +208,11 @@ class Context(dict):
     (``n_buf`` the buffered rounds a sync folded, 0 without a sync);
     ``window_s``; ``rounds``; ``setup_s``; ``peak_bytes``; in a traced run
     ``round_ms`` / ``sync_ms``: device ms of each step of the window that
-    did not / did sync (CUDA events around the step call), and ``traced``:
-    the traced segment's ``steps``, ``seconds``, ``busy_s``, ``misses``
-    (the scan's f64 adds a call) and ``device_ops`` ({operation name:
-    [device seconds, events]})."""
+    did not / did sync (CUDA events around the step call); and in a traced
+    run, or one on a card whose cell has an end-to-end metric read from the
+    device's trace, ``traced``: the traced segment's ``steps``, ``seconds``,
+    ``busy_s``, ``misses`` (the scan's f64 adds a call) and ``device_ops``
+    ({operation name: [device seconds, events]})."""
 
 
 def run(spec: Dict, workload: str, seed: int, seconds: float, trace: bool,
@@ -323,9 +341,12 @@ def run(spec: Dict, workload: str, seed: int, seconds: float, trace: bool,
     while len(judged) < R + 1:
         judged.append(step(judged[-1], *inputs))
 
-    # the traced segment: whole federations under the profiler
+    # the traced segment: whole federations under the profiler, after the
+    # window, in a traced run, and on a card where an end-to-end metric
+    # reads the device's trace
     trace_out = None
-    if trace:
+    if trace or on_card and any(m["source"] == "device_trace"
+                                for m in c["end_to_end"]):
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if on_card else [])
@@ -377,7 +398,7 @@ def run(spec: Dict, workload: str, seed: int, seconds: float, trace: bool,
     line = {"correct": bool(correct), "attempted": ctx["rounds"],
             "failed": 0 if correct else R,
             "metrics": metrics, "device": device_info}
-    if trace_out is not None:
+    if trace:
         device_info.update(busy_s=trace_out["busy_s"], window_s=traced_s)
         line["breakdown"] = trace_out["breakdown"]
     line["checks"] = checks

@@ -3,7 +3,13 @@ reached in the traced federations: the calls' least seconds (``cost.py``,
 two calls a sync: over the clients' rows and over their validation rows,
 every slot of the K x cap buffers voted) over the kernel's device seconds
 in the profiler's trace, the traced time scaled to every call where the
-trace dropped a kernel event."""
+trace dropped a kernel event.
+
+Its bytes are those of a sync that materialises the (K, K x cap, rows)
+buffer of every slot's feature column and votes each slot, so
+``BENCHMARK.json`` lists the cells whose sync does that.  A cell whose sync
+reads x through the feature index brings a roofline reader of its own,
+with that vote's operations and bytes counted in the benchmark."""
 from perfbench import cost
 
 KERNEL = "stump_vote_kernel"

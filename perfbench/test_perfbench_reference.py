@@ -12,7 +12,9 @@ from perfbench import harness
 from perfbench.reference.fedboost import control, judge
 from perfbench.traffic.generator import mesh_inputs, thresholds
 
-CELLS = ["covtype10p_enhanced", "covtype10p_sync1"]
+# the cell whose settings the tests of the reference's mechanics borrow;
+# the per-cell tests take ``workload``, a case a cell (conftest.py)
+SETTINGS_OF = "covtype10p_enhanced"
 
 
 def federation(spec, bench, workload, seed):
@@ -44,7 +46,6 @@ def federation(spec, bench, workload, seed):
     return states, (*arrays, thr), st, c["limits"]
 
 
-@pytest.mark.parametrize("workload", CELLS)
 def test_reference_agrees_with_the_mesh_step_over_a_federation(
         small_bench, workload):
     spec, bench = small_bench
@@ -57,7 +58,6 @@ def test_reference_agrees_with_the_mesh_step_over_a_federation(
     assert got["nonfinite"] == 0 and got["err_vs_chance"] < 1.0
 
 
-@pytest.mark.parametrize("workload", CELLS)
 def test_the_bf16_control_fails_the_cells_limits(small_bench, workload):
     spec, bench = small_bench
     c = harness.cell(spec, workload, bench)
@@ -74,7 +74,7 @@ def test_the_bf16_control_fails_the_cells_limits(small_bench, workload):
 
 def test_a_changed_record_is_found():
     spec = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    c = harness.cell(spec, CELLS[0])
+    c = harness.cell(spec, SETTINGS_OF)
     st = harness.settings(c["config"], c["traffic"])
     g = torch.Generator().manual_seed(0)
     K, n, nv, F = 4, 6, 5, 3
@@ -99,7 +99,7 @@ def test_a_changed_record_is_found():
 @pytest.mark.parametrize("where", ["D", "val_margin", "prev_err"])
 def test_a_non_finite_state_is_found_and_not_matched(where):
     spec = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    c = harness.cell(spec, CELLS[0])
+    c = harness.cell(spec, SETTINGS_OF)
     st = harness.settings(c["config"], c["traffic"])
     g = torch.Generator().manual_seed(1)
     K, n, nv, F = 4, 6, 5, 3
@@ -133,7 +133,7 @@ def test_the_update_stays_finite_where_its_exponent_passes_f32s_range():
               torch.randn((K, 4, F), generator=g), torch.ones((K, 4)),
               torch.zeros((F, 2)))
     spec = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    c = harness.cell(spec, CELLS[0])
+    c = harness.cell(spec, SETTINGS_OF)
     fed = Fed(inputs, harness.settings(c["config"], c["traffic"]))
     D = torch.full((K, n), 1.0 / n)
     v = torch.linspace(-500.0, 500.0, n).expand(K, n)
